@@ -6,13 +6,19 @@ Phases, in order; any failure exits non-zero:
 
   1. card   — print the card's name and power limit (nvidia-smi);
   2. build  — build the CUDA kernels from `src/repro_torch/kernels/csrc/`
-              with nvcc (sm_90a) and print the build time;
-  3. kernels — hold each kernel against its plain torch version on the card,
-              bit for bit: k in 1..4 tables, ragged widths, all-zero and
-              all-one rows, T = 256, and for the fused kernel K0 = 0 and
-              slots through both kinds of indirection;
-  4. main path — `repro_torch.api.Matcher.count(engine="vector")` on the
-              synthetic dblp (size-8 and size-16 queries) and human
+              with nvcc (sm_90a), one nvcc per source, all started
+              together, and print the build times;
+  3. kernels — hold each kernel against its plain torch version on the card.
+              The bitmap kernels bit for bit: k in 1..4 tables, ragged
+              widths, all-zero and all-one rows, T = 256, and for the fused
+              kernel K0 = 0 and slots through both kinds of indirection.
+              flash_decode over B in {1, 3}, (H, Hkv) in {(4, 2), (12, 2),
+              (4, 4)}, S in {1, 17, 128, 200}, D in {16, 64, 128}, plus
+              the serve loop's (4, 12, 2, 24, 128) and S = 32,768 at
+              D = 128, in all four (q, cache) dtype pairs, with ragged
+              lengths and with none, within FD_TOL (below);
+  4. matcher path — `repro_torch.api.Matcher.count(engine="vector")` on
+              the synthetic dblp (size-8 and size-16 queries) and human
               (size-8) datasets at scale 1.0, plus a size-8 query on dblp
               at scale 0.02 whose count stays below the limit, with
               intersect="auto" and "fused", each count held against the
@@ -23,9 +29,28 @@ Phases, in order; any failure exits non-zero:
               VectorStats must be equal, and the scale-1.0 dblp supersteps
               and CER hits equal the JAX reference's (those counts stop
               at the limit);
-  5. timing — each kernel's median device time at the main path's shapes
-              beside its plain version's and its memory bound;
-  6. summary — the kernels line, the card, one JSON line of per-kernel
+  5. LM path — qwen2-1.5b decode serving (`repro_torch.launch.serve`):
+              the reduced model's four float32 steps on the card against
+              the same steps on the CPU (logits within 1e-4, the same
+              greedy tokens); then at full width (28 layers, d_model 1536,
+              random weights from seed 0, bfloat16) `decode_loop` at
+              batch 4 x 16 tokens with a float32 cache, once with every
+              attention call held against the plain version on its own
+              inputs, then counted: flash_decode launches must be 28 x 16;
+              then 3 `decode_32k` steps at batch 32 (the shape's 128 rows
+              need 120 GB of cache) over a bfloat16 cache of 32,768
+              positions filled with seeded random values, lengths from
+              `make_inputs(seed=0)`: 28 x 3 launches; then one more step in
+              bfloat16 with each of its 28 attention calls held against the
+              plain version, the same step with the plain attention, and
+              both again in float32 activations: the float32 logits agree
+              within LM_32K_F32_ATOL, and the bfloat16 step with the kernel
+              is no farther from the float32 step than LM_32K_BF16_RATIO
+              times the plain bfloat16 step is; peak device memory;
+  6. timing — each kernel's median device time at its path's shapes beside
+              its plain version's, its bound and, for flash_decode, the
+              time of `scaled_dot_product_attention`;
+  7. summary — the kernels line, the card, one JSON line of per-kernel
               numbers, and last the line
               {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -38,12 +63,14 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
+FP32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 TILE_ROWS = 256                  # MatchOptions.tile_rows default
 LIMIT = 1_000_000                # MatchOptions.limit default
 HUMAN_SIZE8_COUNT = 40_860       # ref-engine count of human size-8, seed 7
@@ -59,6 +86,33 @@ REFERENCE_STATS = {("dblp", 1.0, 8): {"supersteps": 35},
 # The route each kernel belongs to: its launch count is read on that route
 KERNEL_ROUTE = {"bitmap_intersect": "auto",
                 "fused_expand_intersect": "fused"}
+
+LM_ARCH = "qwen2-1.5b"
+SERVE_BATCH, SERVE_TOKENS = 4, 16      # the reference launcher's defaults
+DECODE_SHAPE = "decode_32k"
+DECODE_BATCH = 32      # the shape's 128 rows need 120 GB of bf16 cache
+DECODE_STEPS = 3
+# flash_decode against its plain version, (atol, rtol) by output (q)
+# dtype. Both sum in float32 and cast at the end: a float32 output differs
+# by the order of the sums; a bfloat16 output may round one bfloat16 step
+# (at most 2^-7 of the value) the other way. atol is 1 % of the typical
+# output of a 32k-long row (~0.01), so a row that is zero or lost part of
+# its sum fails; `fd_agrees` also fails when a zero row would pass.
+FD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-4, 8e-3)}
+FD_DTYPES = (torch.float32, torch.bfloat16)
+# LM logits in float32 activations: the reduced model on the card against
+# the CPU, and the full model's decode_32k step with the kernel against the
+# same step with the plain attention (fp32 sums in another order, 28
+# layers deep).
+LM_F32_ATOL = 1e-4
+LM_32K_F32_ATOL = 1e-3
+# A bfloat16 step's logits cannot be held to a fixed atol against the plain
+# attention's: one bfloat16 step of difference in an attention output grows
+# through 28 layers of random weights (0.14 at logits of 4.0 on the H100).
+# They are held against the float32 step instead: the kernel's bfloat16
+# step may be at most this many times as far from it (RMS over the logits)
+# as the plain bfloat16 step is, i.e. add no more error than bfloat16 does.
+LM_32K_BF16_RATIO = 2.0
 
 
 def card_line() -> str:
@@ -242,6 +296,335 @@ def check_runs(by_route: dict) -> None:
                              f"between routes: {diff}")
 
 
+def build_all(build, names) -> dict:
+    """Build every kernel library at once, one nvcc per source. Returns
+    {name: (library path, seconds)}."""
+    def one(name):
+        t0 = time.perf_counter()
+        lib = build.build_library(name)
+        return lib, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(names)) as ex:
+        futures = {name: ex.submit(one, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
+
+
+def fd_agrees(got, want, where: str) -> float:
+    """flash_decode's output against its plain version's within FD_TOL for
+    the output dtype, finite, and on rows that a zero output would fail.
+    Returns the largest absolute difference; raises SystemExit otherwise."""
+    atol, rtol = FD_TOL[want.dtype]
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    if not (bool(torch.isfinite(got).all())
+            and torch.allclose(got, want, atol=atol, rtol=rtol)):
+        raise SystemExit(f"flash_decode disagrees: {where} "
+                         f"max_abs_err={err}")
+    zero_passes = (want.abs() <= atol + rtol * want.abs()).all(-1)
+    if bool(zero_passes.any()):
+        raise SystemExit(f"flash_decode: {where}: {int(zero_passes.sum())} "
+                         "rows are so small that a zero row would pass")
+    return err
+
+
+def held_attention(kops, ref, run) -> dict:
+    """Runs `run()` with every kernel call of `kops.decode_attention` held
+    against the plain version on that call's own inputs (shapes, dtypes,
+    lengths and cache contents of the path). Returns the number of calls
+    held, their (q, cache) dtypes and the largest difference."""
+    orig = kops.decode_attention
+    held = {"calls": 0, "dtypes": set(), "max_abs_err": 0.0}
+
+    def checked(q, k, v, lengths=None, *, use_kernel=True):
+        out = orig(q, k, v, lengths, use_kernel=use_kernel)
+        if use_kernel:
+            where = (f"call {held['calls']} q {tuple(q.shape)} {q.dtype} "
+                     f"cache {tuple(k.shape)} {k.dtype}")
+            err = fd_agrees(out, ref.flash_decode_ref(q, k, v, lengths),
+                            where)
+            held["calls"] += 1
+            held["dtypes"].add((str(q.dtype).removeprefix("torch."),
+                                str(k.dtype).removeprefix("torch.")))
+            held["max_abs_err"] = max(held["max_abs_err"], err)
+        return out
+
+    kops.decode_attention = checked
+    try:
+        run()
+    finally:
+        kops.decode_attention = orig
+    held["dtypes"] = sorted(held["dtypes"])
+    return held
+
+
+def flash_decode_inputs(gen, rng, shape, q_dtype, kv_dtype, dev):
+    """Seeded q, k, v on the card and ragged lengths in [1, S] that hold 1
+    and S when B > 1."""
+    b, h, hkv, s, d = shape
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(q_dtype)
+    k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(kv_dtype)
+    v = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(kv_dtype)
+    lens = rng.integers(1, s + 1, b)
+    if b > 1:
+        lens[:2] = (1, s)
+    return q, k, v, torch.from_numpy(lens.astype(np.int32)).to(dev)
+
+
+def check_flash_decode(fd, ref, dev) -> tuple[dict, int]:
+    """flash_decode against its plain version over the CPU tests' shapes
+    plus D = 128, and S = 32,768 at D = 128, in all four dtype pairs, with
+    ragged lengths and with none. Returns the largest absolute difference
+    per output dtype and the number of comparisons."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    shapes = [(b, h, hkv, s, d) for b in (1, 3)
+              for h, hkv in ((4, 2), (12, 2), (4, 4))
+              for s in (1, 17, 128, 200) for d in (16, 64, 128)]
+    shapes += [(4, 12, 2, 24, 128), (3, 12, 2, 32_768, 128)]
+    errs = {str(t).removeprefix("torch."): 0.0 for t in FD_DTYPES}
+    n = 0
+    for shape in shapes:
+        for q_dtype in FD_DTYPES:
+            for kv_dtype in FD_DTYPES:
+                q, k, v, lengths = flash_decode_inputs(gen, rng, shape,
+                                                       q_dtype, kv_dtype, dev)
+                for lens in (lengths, None):
+                    err = fd_agrees(
+                        fd.flash_decode(q, k, v, lens),
+                        ref.flash_decode_ref(q, k, v, lens),
+                        f"shape {shape} q {q_dtype} cache {kv_dtype} "
+                        f"lengths {'ragged' if lens is not None else 'None'}")
+                    key = str(q_dtype).removeprefix("torch.")
+                    errs[key] = max(errs[key], err)
+                    n += 1
+    return errs, n
+
+
+def check_lm_reduced(build_bundle, dev) -> float:
+    """The reduced qwen2-1.5b's four float32 decode steps on the card
+    against the same steps on the CPU: same weights, same random cache,
+    ragged lengths from make_inputs. Returns the largest logit
+    difference."""
+    cpu = build_bundle(LM_ARCH, reduced=True, device="cpu")
+    card = build_bundle(LM_ARCH, reduced=True, device=dev)
+    m_cpu = cpu.init_fn(0)
+    m_card = card.init_fn(1)
+    m_card.load_state_dict(m_cpu.state_dict())
+    inputs = cpu.make_inputs(DECODE_SHAPE, seed=0)
+    b = inputs["token"].shape[0]
+    c_cpu = cpu.init_caches(b, 128 + 4, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(2)
+    for t in c_cpu.values():
+        t.normal_(generator=gen)
+    c_card = {n: t.to(dev) for n, t in c_cpu.items()}
+    token, lengths = inputs["token"], inputs["lengths"]
+    worst = 0.0
+    for i in range(4):
+        want, c_cpu = cpu.steps["decode"](
+            m_cpu, c_cpu, {"token": token, "lengths": lengths},
+            dtype=torch.float32)
+        got, c_card = card.steps["decode"](
+            m_card, c_card, {"token": token.to(dev),
+                             "lengths": lengths.to(dev)},
+            dtype=torch.float32)
+        got = got.cpu()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        if err > LM_F32_ATOL or not torch.equal(got.argmax(-1),
+                                                want.argmax(-1)):
+            raise SystemExit(f"reduced LM step {i}: card and CPU differ "
+                             f"(max_abs_err={err})")
+        token, lengths = want.argmax(-1).to(torch.int32), lengths + 1
+    return worst
+
+
+def drive_serve(serve, bi, fd, kops, ref, bundle, model) -> dict:
+    """The LM main path: `decode_loop` at full width, batch 4 x 16 tokens,
+    float32 cache. A first loop holds each of its attention calls against
+    the plain version (and warms up); the second runs with the launch
+    counts set to 0 just before and read just after."""
+    want = bundle.cfg.n_layers * SERVE_TOKENS
+    held = held_attention(kops, ref, lambda: serve.decode_loop(
+        bundle, model, batch=SERVE_BATCH, tokens=SERVE_TOKENS))
+    if held["calls"] != want:
+        raise SystemExit(f"serve loop held {held['calls']} attention calls, "
+                         f"expected {want}")
+    print(f"serve loop: {held['calls']} flash_decode calls agree with the "
+          f"plain version on their own inputs, (q, cache) dtypes "
+          f"{held['dtypes']}, max_abs_err {held['max_abs_err']:.3g}",
+          flush=True)
+    bi.reset_launches()
+    fd.reset_launches()
+    res = serve.decode_loop(bundle, model, batch=SERVE_BATCH,
+                            tokens=SERVE_TOKENS)
+    launches = fd.flash_decode.launches
+    if launches != want:
+        raise SystemExit(f"serve loop launched flash_decode {launches} "
+                         f"times, expected {want}")
+    toks = res["tokens"]
+    if toks.shape != (SERVE_TOKENS, SERVE_BATCH) or toks.min() < 0 \
+            or toks.max() >= bundle.cfg.vocab:
+        raise SystemExit(f"serve loop gave tokens {toks}")
+    return {"batch": SERVE_BATCH, "tokens": SERVE_TOKENS,
+            "seconds": res["seconds"], "ms_per_step": res["ms_per_step"],
+            "tokens_per_s": res["tokens_per_s"], "launches": launches,
+            "held_max_abs_err": held["max_abs_err"],
+            "bitmap_launches": bi.bitmap_intersect.launches
+            + bi.fused_expand_intersect.launches,
+            "sample": toks[:, 0].tolist()}
+
+
+def drive_decode_32k(bi, fd, kops, ref, bundle, model, dev,
+                     seq: int) -> dict:
+    """decode_32k at batch 32: a bfloat16 cache of 32,768 positions (plus
+    room for the steps' new tokens) filled with seeded random values,
+    lengths from make_inputs(seed=0); DECODE_STEPS greedy steps with the
+    launch counts set to 0 just before and read just after; then one more
+    step with the kernel (each attention call held against the plain
+    version) and the same step with the plain attention, in bfloat16 and
+    in float32 activations."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    inputs = bundle.make_inputs(DECODE_SHAPE, seed=0, batch=DECODE_BATCH)
+    caches = bundle.init_caches(DECODE_BATCH, seq + DECODE_STEPS + 1,
+                                dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for t in caches.values():
+        t.normal_(generator=gen)
+    step = bundle.steps["decode"]
+    token, lengths = inputs["token"], inputs["lengths"]
+    torch.cuda.synchronize()
+    bi.reset_launches()
+    fd.reset_launches()
+    step_ms = []
+    for _ in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        logits, caches = step(model, caches,
+                              {"token": token, "lengths": lengths})
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        lengths = lengths + 1
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = fd.flash_decode.launches
+    want = bundle.cfg.n_layers * DECODE_STEPS
+    if launches != want:
+        raise SystemExit(f"decode_32k launched flash_decode {launches} "
+                         f"times, expected {want}")
+    if not bool(torch.isfinite(logits).all()):
+        raise SystemExit("decode_32k logits are not finite")
+    batch = {"token": token, "lengths": lengths}
+    logits = {}
+
+    def kernel_bf16():
+        logits["bfloat16", "kernel"] = step(model, caches, batch)[0]
+    held = held_attention(kops, ref, kernel_bf16)
+    if held["calls"] != bundle.cfg.n_layers:
+        raise SystemExit(f"decode_32k step held {held['calls']} attention "
+                         f"calls, expected {bundle.cfg.n_layers}")
+    print(f"decode_32k step: {held['calls']} flash_decode calls agree with "
+          f"the plain version on their own inputs, (q, cache) dtypes "
+          f"{held['dtypes']}, max_abs_err {held['max_abs_err']:.3g}",
+          flush=True)
+    logits["bfloat16", "plain"] = step(model, caches, batch,
+                                       use_kernel=False)[0]
+    for use_kernel, name in ((True, "kernel"), (False, "plain")):
+        logits["float32", name] = step(model, caches, batch,
+                                       dtype=torch.float32,
+                                       use_kernel=use_kernel)[0]
+    logits = {k: v.float() for k, v in logits.items()}
+    f32 = logits["float32", "plain"]
+
+    def rms(a):
+        return float(a.pow(2).mean().sqrt())
+    diff = {"attention_held": held}
+    for key in ("bfloat16", "float32"):
+        got, plain = logits[key, "kernel"], logits[key, "plain"]
+        diff[key] = {
+            "logits_max_abs_err": float((got - plain).abs().max()),
+            "logits_max_abs": float(plain.abs().max()),
+            "logits_std": float(plain.std()),
+            "greedy_agreement": float((got.argmax(-1)
+                                       == plain.argmax(-1)).float().mean()),
+            "kernel_rms_vs_float32_plain": rms(got - f32),
+            "plain_rms_vs_float32_plain": rms(plain - f32)}
+    b16 = diff["bfloat16"]
+    ratio = (b16["kernel_rms_vs_float32_plain"]
+             / b16["plain_rms_vs_float32_plain"])
+    b16["rms_ratio"] = ratio
+    print(f"decode_32k step, kernel vs plain attention: {diff}", flush=True)
+    err = diff["float32"]["logits_max_abs_err"]
+    if not err <= LM_32K_F32_ATOL:
+        raise SystemExit(f"decode_32k float32 step: kernel and plain "
+                         f"attention differ (max_abs_err={err})")
+    if not (bool(torch.isfinite(logits["bfloat16", "kernel"]).all())
+            and ratio <= LM_32K_BF16_RATIO):
+        raise SystemExit(f"decode_32k bfloat16 step: the kernel's logits are "
+                         f"{ratio:.3g}x as far from the float32 step as the "
+                         f"plain attention's (limit {LM_32K_BF16_RATIO})")
+    return {"batch": DECODE_BATCH, "cache_positions": seq + DECODE_STEPS + 1,
+            "steps": DECODE_STEPS, "step_ms": step_ms,
+            "ms_per_step": float(np.median(step_ms)),
+            "tokens_per_s": DECODE_BATCH / (np.median(step_ms) / 1e3),
+            "launches": launches, "vs_plain": diff,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "caches": caches, "lengths": lengths + 1,
+            "n_heads": bundle.cfg.n_heads}
+
+
+def time_flash_decode(fd, ref, dev, d32k, launches, errs) -> dict:
+    """flash_decode at one layer's decode_32k shape: layer 0's bfloat16
+    cache, bfloat16 q, the lengths the last step attended over; beside the
+    plain version and scaled_dot_product_attention with a length mask."""
+    import torch.nn.functional as F
+    k, v = d32k["caches"]["k"][0], d32k["caches"]["v"][0]
+    lens = d32k["lengths"]
+    b, s, hkv, d = k.shape
+    h = d32k["n_heads"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    want = ref.flash_decode_ref(q, k, v, lens)
+    err = fd_agrees(fd.flash_decode(q, k, v, lens), want,
+                    "the decode_32k shape")
+    ms = median_ms(lambda: fd.flash_decode(q, k, v, lens))
+    plain_ms = median_ms(lambda: ref.flash_decode_ref(q, k, v, lens))
+    # the library yardstick: (B, H, 1, D) over (B, Hkv, S, D) views
+    mask = (torch.arange(s, device=dev)[None, :]
+            < lens[:, None])[:, None, None, :]
+    qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              enable_gqa=True)
+    lib_err = float((sdpa()[:, :, 0].float() - want.float()).abs().max())
+    library_ms = median_ms(sdpa)
+    total_len = int(lens.sum())
+    nbytes = (total_len * hkv * d * 2 * k.element_size()
+              + 2 * q.numel() * q.element_size() + lens.numel() * 4)
+    flops = 4 * total_len * h * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"time flash_decode: B={b} H={h} Hkv={hkv} D={d} S={s} "
+          f"sum(lengths)={total_len} ms={ms:.6f} plain_ms={plain_ms:.6f} "
+          f"sdpa_ms={library_ms:.6f} (max_abs_err {lib_err:.3g}) "
+          f"bound_ms={bound_ms:.6f} ({bound_by}: {nbytes} B, {flops} flop)",
+          flush=True)
+    return {"name": "flash_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:100",
+            "launches": launches["serve"], "launches_by_path": launches,
+            "max_abs_err": max(max(errs.values()), err),
+            "max_abs_err_by_case": errs,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention(enable_gqa=True, "
+                       "attn_mask=length mask)",
+            "library_max_abs_err": lib_err,
+            "shape": {"B": b, "H": h, "Hkv": hkv, "D": d, "S": s,
+                      "sum_lengths": total_len, "q": "bfloat16",
+                      "cache": "bfloat16"}}
+
+
 def time_kernels(bi, ref, cq, dev, launches, errs) -> list:
     """Each kernel at the main path's shapes: the dblp size-8 plan's widest
     extend (most gathered words), T = tile_rows, the plan's own tables."""
@@ -313,7 +696,15 @@ def main() -> int:
     from repro_torch.core.ref_engine import cemr_match
     from repro_torch.kernels import bitmap_intersect as bi
     from repro_torch.kernels import build, ref
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.config import LM_SHAPES
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_bundle
 
+    # the plain versions are the references: full float32 products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -321,13 +712,19 @@ def main() -> int:
     dev = torch.device("cuda")
 
     t0 = time.perf_counter()
-    lib = build.build_library(bi.LIBRARY)
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.3f} s",
-          flush=True)
+    for name, (lib, secs) in build_all(build, (bi.LIBRARY,
+                                               fd.LIBRARY)).items():
+        print(f"build: {lib.name} in {secs:.3f} s", flush=True)
+    print(f"build: all in {time.perf_counter() - t0:.3f} s", flush=True)
 
     t0 = time.perf_counter()
     errs = check_kernels(bi, ref, dev)
-    print(f"kernels agree with their plain versions bit for bit "
+    print(f"bitmap kernels agree with their plain versions bit for bit "
+          f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    t0 = time.perf_counter()
+    fd_errs, n_fd = check_flash_decode(fd, ref, dev)
+    print(f"flash_decode agrees with its plain version in {n_fd} cases, "
+          f"max_abs_err by output dtype {fd_errs} "
           f"({time.perf_counter() - t0:.3f} s)", flush=True)
 
     work = prepare(api, cemr_match)
@@ -345,12 +742,38 @@ def main() -> int:
             raise SystemExit(f"{name} never launched on the {route} route")
     check_runs(by_route)
 
+    t0 = time.perf_counter()
+    worst = check_lm_reduced(build_bundle, dev)
+    print(f"reduced {LM_ARCH}: 4 float32 steps on the card agree with the "
+          f"CPU, max_abs_err {worst:.3g} "
+          f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    t0 = time.perf_counter()
+    bundle = build_bundle(LM_ARCH, device=dev)
+    model = bundle.init_fn(0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"{LM_ARCH}: {bundle.cfg.n_params():,} parameters in bfloat16, "
+          f"init {time.perf_counter() - t0:.3f} s", flush=True)
+    serve_res = drive_serve(serve, bi, fd, kops, ref, bundle, model)
+    print("lm serve " + json.dumps(serve_res), flush=True)
+    d32k = drive_decode_32k(bi, fd, kops, ref, bundle, model, dev,
+                            LM_SHAPES[DECODE_SHAPE]["seq_len"])
+    print("lm decode_32k " + json.dumps(
+        {k: v for k, v in d32k.items()
+         if k not in ("caches", "lengths", "n_heads")}), flush=True)
+
     shapes_cq = next(w["compiled"] for w in work
                      if (w["dataset"], w["scale"], w["query_size"])
                      == ("dblp", 1.0, 8))
     kernels = time_kernels(bi, ref, shapes_cq, dev, launches, errs)
+    kernels.append(time_flash_decode(
+        fd, ref, dev, d32k,
+        {"serve": serve_res["launches"], "decode_32k": d32k["launches"]},
+        {**{f"grid {k}": v for k, v in fd_errs.items()},
+         "serve loop": serve_res["held_max_abs_err"],
+         "decode_32k step": d32k["vs_plain"]["attention_held"]
+                            ["max_abs_err"]}))
 
-    print("kernels: bitmap_intersect, fused_expand_intersect")
+    print("kernels: bitmap_intersect, fused_expand_intersect, flash_decode")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,18 @@
-"""Where the time of the port's main path goes, on one CUDA card.
+"""Where the time of the port's paths goes, on one CUDA card.
 
     python3 chip_trace.py
 
 Runs `repro_torch.api.Matcher.count(engine="vector")` on synthetic dblp at
 scale 1.0 with `random_query(size=8, seed=7)`, once to warm up and then
-under `torch.profiler` for each `intersect` route, and prints one JSON line
-per route: wall time of the profiled count, the device's busy time (sum of
-kernel times; one stream, so kernels do not overlap), the busy share, the
-number of kernel launches, and the kernels that took the most device time.
-Needs CUDA; exits non-zero without it.
+under `torch.profiler` for each `intersect` route; then one full-width
+qwen2-1.5b decode step (bfloat16, random weights from seed 0) as the
+serve loop has it (batch 4, float32 cache of 24 positions) and as
+`decode_32k` has it (batch 32, bfloat16 cache of 32,772 positions filled
+with random values, lengths from `make_inputs(seed=0)`), each after a
+warm-up step. It prints one JSON line per window: wall time, the device's
+busy time (sum of kernel times; one stream, so kernels do not overlap),
+the busy share, the number of kernel launches, and the kernels that took
+the most device time. Needs CUDA; exits non-zero without it.
 """
 from __future__ import annotations
 
@@ -20,6 +24,59 @@ from pathlib import Path
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+
+def profiled(fn) -> tuple:
+    """Run fn once under torch.profiler; return (its result, the window's
+    numbers: wall, device busy time and share, launches, top kernels)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return out, {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+        "kernel_launches": sum(e.count for e in kernels),
+        "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                           for e in top}}
+
+
+def trace_lm(card: str) -> None:
+    from repro_torch.models.api import build_bundle
+    bundle = build_bundle("qwen2-1.5b")
+    model = bundle.init_fn(0, dtype=torch.bfloat16)
+    step = bundle.steps["decode"]
+    dev = bundle.device
+    cases = [("serve", 4, 24, torch.float32, None),
+             ("decode_32k", 32, 32_768 + 4, torch.bfloat16, "decode_32k")]
+    for name, batch, positions, cache_dtype, shape in cases:
+        caches = bundle.init_caches(batch, positions, dtype=cache_dtype)
+        if shape is None:
+            inputs = {"token": torch.ones(batch, dtype=torch.int32,
+                                          device=dev),
+                      "lengths": torch.full((batch,), 8, dtype=torch.int32,
+                                            device=dev)}
+        else:
+            gen = torch.Generator(device=dev).manual_seed(1)
+            for t in caches.values():
+                t.normal_(generator=gen)
+            inputs = bundle.make_inputs(shape, seed=0, batch=batch)
+        step(model, caches, inputs)                          # warm
+        _, stats = profiled(lambda: step(model, caches, inputs))
+        print(json.dumps({"card": card, "path": f"lm {name}",
+                          "batch": batch, "cache_positions": positions,
+                          "cache_dtype": str(cache_dtype), **stats}),
+              flush=True)
+        del caches
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -38,28 +95,14 @@ def main() -> int:
     m = api.Matcher(ds)
     for intersect in ("auto", "fused"):
         m.count(q, engine="vector", intersect=intersect)      # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            out = m.count(q, engine="vector", intersect=intersect)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        launches = sum(e.count for e in kernels)
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        out, stats = profiled(lambda: m.count(q, engine="vector",
+                                              intersect=intersect))
         print(json.dumps({
-            "card": card, "intersect": intersect, "count": out.count,
-            "supersteps": out.stats.supersteps, "wall_ms": wall_ms,
-            "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / wall_ms if wall_ms else None,
-            "kernel_launches": launches,
-            "launches_per_superstep": launches / max(out.stats.supersteps, 1),
-            "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
-                               for e in top}}), flush=True)
+            "card": card, "path": "matcher", "intersect": intersect,
+            "count": out.count, "supersteps": out.stats.supersteps,
+            "launches_per_superstep": stats["kernel_launches"]
+            / max(out.stats.supersteps, 1), **stats}), flush=True)
+    trace_lm(card)
     return 0
 
 

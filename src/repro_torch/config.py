@@ -1,0 +1,80 @@
+"""The LM configuration dataclass and the LM shape registry of the port.
+
+A copy of `LM_SHAPES` and of `LMConfig` from the JAX package's
+`config.py` (pure dataclasses; the port imports nothing of that package).
+`LMConfig` keeps the fields that the decode path and `n_params` read; the
+training, sharding and chunking knobs come with the slices that use them
+(ROADMAP.md Queue 1). Every architecture the port serves has a module in
+`repro_torch/configs/` with `config()` (the published hyperparameters) and
+`reduced()` (a tiny same-family config for CPU tests);
+`configs/registry.py` resolves `--arch`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+__all__ = ["LMConfig", "LM_SHAPES"]
+
+
+@dataclasses.dataclass
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    attention: str = "gqa"           # "gqa" | "mla"
+    qkv_bias: bool = False
+    rope_frac: float = 1.0           # chatglm3 '2d rope' = 0.5
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    tie_embeddings: bool = False
+    # MLA fields (read by n_params only: MLA blocks are not ported yet)
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+
+    def n_params(self) -> int:
+        """Total parameter count (for 6·N·D roofline bookkeeping)."""
+        d, f, v, L = self.d_model, self.d_ff, self.vocab, self.n_layers
+        if self.attention == "mla":
+            attn = (d * self.q_lora_rank
+                    + self.q_lora_rank * self.n_heads
+                    * (self.qk_nope_head_dim + self.qk_rope_head_dim)
+                    + d * (self.kv_lora_rank + self.qk_rope_head_dim)
+                    + self.kv_lora_rank * self.n_heads
+                    * (self.qk_nope_head_dim + self.v_head_dim)
+                    + self.n_heads * self.v_head_dim * d)
+        else:
+            attn = (d * self.n_heads * self.head_dim
+                    + 2 * d * self.n_kv_heads * self.head_dim
+                    + self.n_heads * self.head_dim * d)
+        if self.moe_experts:
+            ffn = self.moe_experts * 3 * d * f + d * self.moe_experts
+        else:
+            ffn = 3 * d * f
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        return L * (attn + ffn + 2 * d) + emb + d
+
+    def n_active_params(self) -> int:
+        """Active per-token params (MoE: top-k experts only)."""
+        if not self.moe_experts:
+            return self.n_params()
+        d, f, L = self.d_model, self.d_ff, self.n_layers
+        dense_total = self.n_params() - L * self.moe_experts * 3 * d * f
+        return dense_total + L * self.moe_top_k * 3 * d * f
+
+
+# (shape_id → spec); the port serves the "decode" kinds so far.
+LM_SHAPES: dict[str, dict[str, Any]] = {
+    "train_4k":    {"kind": "train",   "seq_len": 4096,    "global_batch": 256},
+    "prefill_32k": {"kind": "prefill", "seq_len": 32_768,  "global_batch": 32},
+    "decode_32k":  {"kind": "decode",  "seq_len": 32_768,  "global_batch": 128},
+    "long_500k":   {"kind": "decode",  "seq_len": 524_288, "global_batch": 1},
+}

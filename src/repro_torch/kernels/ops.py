@@ -1,14 +1,18 @@
-"""Dispatch adapters between the engine and the bitmap kernels.
+"""Dispatch adapters between the callers and the kernels.
 
-Both adapters keep the reference's `(R, pop)` contract, with pop flattened
-to (T,) int32, so the engine's contained-vertex prune never re-reduces R.
-The wrappers pick the kernel or its plain version by the tensors' device.
+The bitmap adapters keep the reference's `(R, pop)` contract, with pop
+flattened to (T,) int32, so the engine's contained-vertex prune never
+re-reduces R. `decode_attention` is the LM decode path's attention. The
+wrappers pick the kernel or its plain version by the tensors' device.
 """
 from __future__ import annotations
 
+from . import ref
 from .bitmap_intersect import bitmap_intersect, fused_expand_intersect
+from .flash_decode import flash_decode
 
-__all__ = ["make_intersect_fn", "make_fused_expand_intersect_fn"]
+__all__ = ["make_intersect_fn", "make_fused_expand_intersect_fn",
+           "decode_attention"]
 
 
 def make_intersect_fn():
@@ -31,3 +35,14 @@ def make_fused_expand_intersect_fn():
         return r, pop.reshape(-1)
 
     return fn
+
+
+def decode_attention(q, k, v, lengths=None, *, use_kernel: bool = True):
+    """(B, H, D) single-token attention over a (B, S, Hkv, D) KV cache,
+    through the kernel's wrapper (the CUDA kernel on the card, its plain
+    version on the CPU), or with `use_kernel=False` through the plain
+    version on any device — the counterpart of the reference's
+    `use_pallas` flag, whose default is the other way round."""
+    if use_kernel:
+        return flash_decode(q, k, v, lengths)
+    return ref.flash_decode_ref(q, k, v, lengths)

@@ -14,7 +14,7 @@ import torch
 from ..core.bitops import row_popcount
 
 __all__ = ["bitmap_intersect_ref", "fused_expand_intersect_ref",
-           "leaf_count_ref"]
+           "flash_decode_ref", "leaf_count_ref"]
 
 
 def _jnp_index(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -48,6 +48,30 @@ def fused_expand_intersect_ref(tables, idx, rows, bitpos, *, slots):
     cols = torch.cat([parent, bitpos[:, None]], dim=1)
     idxs = torch.stack([cols[:, s] for s in slots], dim=1)
     return bitmap_intersect_ref(tables, idxs)
+
+
+def flash_decode_ref(q, k, v, lengths=None):
+    """Single-token GQA decode attention, in float32.
+
+    q: (B, H, D); k, v: (B, S, Hkv, D); lengths: (B,) int valid cache
+    lengths, None for S. Query head h reads KV head h // (H / Hkv); the
+    scores are `q·k / sqrt(D)` (the scale rounded in float32, as the
+    reference rounds it), softmaxed over the positions < lengths[b].
+    Returns (B, H, D) in q's dtype. A row with lengths[b] == 0 has nothing
+    to attend to and gives NaN."""
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32))
+    qg = q.reshape(b, hkv, group, d).float()
+    scores = torch.einsum("bngd,bsnd->bngs", qg, k.float()) * scale
+    if lengths is not None:
+        pos = torch.arange(s, device=k.device)
+        mask = pos[None, None, None, :] < lengths[:, None, None, None]
+        scores = scores.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bngs,bsnd->bngd", p, v.float())
+    return out.reshape(b, h, d).to(q.dtype)
 
 
 def leaf_count_ref(bms: list, groups: list[list[int]]):
