@@ -7,16 +7,22 @@ Phases, in order; any failure exits non-zero:
   1. card   — print the card's name and power limit (nvidia-smi);
   2. build  — build the CUDA kernels from `src/repro_torch/kernels/csrc/`
               with nvcc (sm_90a), one nvcc per source, all started
-              together, and print the build times;
+              together, and print the build times; beside them a separate
+              compile of flash_decode.cu with `-Xptxas -v` (the built
+              library's flags are unchanged) prints each flash_decode
+              kernel's registers, spills and shared memory;
   3. kernels — hold each kernel against its plain torch version on the card.
               The bitmap kernels bit for bit: k in 1..4 tables, ragged
               widths, all-zero and all-one rows, T = 256, and for the fused
               kernel K0 = 0 and slots through both kinds of indirection.
               flash_decode over B in {1, 3}, (H, Hkv) in {(4, 2), (12, 2),
-              (4, 4)}, S in {1, 17, 128, 200}, D in {16, 64, 128}, plus
-              the serve loop's (4, 12, 2, 24, 128) and S = 32,768 at
-              D = 128, in all four (q, cache) dtype pairs, with ragged
-              lengths and with none, within FD_TOL (below);
+              (4, 4), (16, 2), (32, 1)}, S in {1, 17, 128, 200}, D in
+              {16, 64, 128}, plus the serve loop's (4, 12, 2, 24, 128),
+              S = 32,768 at D = 128, D = 18 and 40 at S = 200 and D = 256
+              at S = 3,000, in all four (q, cache) dtype pairs,
+              with ragged lengths and with none, and at S = 32,768 with
+              lengths chunk - 1, chunk, chunk + 1 and 2 chunk for the chunk
+              that `split_plan` picks, within FD_TOL (below);
   4. matcher path — `repro_torch.api.Matcher.count(engine="vector")` on
               the synthetic dblp (size-8 and size-16 queries) and human
               (size-8) datasets at scale 1.0, plus a size-8 query on dblp
@@ -36,11 +42,16 @@ Phases, in order; any failure exits non-zero:
               random weights from seed 0, bfloat16) `decode_loop` at
               batch 4 x 16 tokens with a float32 cache, once with every
               attention call held against the plain version on its own
-              inputs, then counted: flash_decode launches must be 28 x 16;
+              inputs, then counted: flash_decode launches must be 28 x 16,
+              all on the "cuda_core" route (float32 cache), each one split
+              kernel and no combine (the device kernels the library
+              reports it launched);
               then 3 `decode_32k` steps at batch 32 (the shape's 128 rows
               need 120 GB of cache) over a bfloat16 cache of 32,768
               positions filled with seeded random values, lengths from
-              `make_inputs(seed=0)`: 28 x 3 launches; then one more step in
+              `make_inputs(seed=0)`: 28 x 3 launches, all on the
+              "tensor_core" route, each a split kernel and a combine; then
+              one more step in
               bfloat16 with each of its 28 attention calls held against the
               plain version, the same step with the plain attention, and
               both again in float32 activations: the float32 logits agree
@@ -49,7 +60,9 @@ Phases, in order; any failure exits non-zero:
               times the plain bfloat16 step is; peak device memory;
   6. timing — each kernel's median device time at its path's shapes beside
               its plain version's, its bound and, for flash_decode, the
-              time of `scaled_dot_product_attention`;
+              time of `scaled_dot_product_attention`, the achieved bytes/s
+              and the share of the bound; and the launch floor, the median
+              time of an empty `torch.cuda._sleep(0)` kernel back to back;
   7. summary — the kernels line, the card, one JSON line of per-kernel
               numbers, and last the line
               {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -309,6 +322,54 @@ def build_all(build, names) -> dict:
         return {name: f.result() for name, f in futures.items()}
 
 
+def ptxas_report(build, fd) -> list:
+    """Compile flash_decode.cu once more with `-Xptxas -v` (into a
+    temporary file; the built library keeps build.NVCC_FLAGS) and return
+    one line per kernel: registers, spill stores/loads, static shared
+    memory."""
+    import re
+    import tempfile
+    build.build_dir().mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.build_dir()) as tmp:
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+               str(Path(tmp) / "ptxas.so"),
+               str(build.CSRC / f"{fd.LIBRARY}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc -Xptxas -v failed:\n{proc.stderr}")
+    text = proc.stdout + proc.stderr
+    # per entry: "Compiling entry function '<name>'", then its spill line,
+    # then "Used N registers[, M bytes smem]"
+    kernels, cur = [], None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            cur = {"name": m.group(1), "spill": None, "regs": None,
+                   "smem": "0"}
+            kernels.append(cur)
+        elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                     r"bytes spill loads", line)):
+            cur["spill"] = m.groups()
+        elif cur and (m := re.search(r"Used (\d+) registers", line)):
+            cur["regs"] = m.group(1)
+            if sm := re.search(r"(\d+) bytes smem", line):
+                cur["smem"] = sm.group(1)
+    if not kernels or any(k["spill"] is None or k["regs"] is None
+                          for k in kernels):
+        raise SystemExit(f"could not read ptxas -v:\n{text[-3000:]}")
+    names = [k["name"] for k in kernels]
+    filt = Path(build._nvcc()).with_name("cu++filt")
+    if filt.exists():
+        names = subprocess.run([str(filt)], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    # "void <unnamed>::f<(int)128>(args)" -> "f<128>"
+    names = [re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::"
+                    r"|\((int|bool)\)", "", n).split("(")[0] for n in names]
+    return [f"{name}: {k['regs']} registers, spill stores {k['spill'][0]} "
+            f"B, spill loads {k['spill'][1]} B, static smem {k['smem']} B"
+            for name, k in zip(names, kernels)]
+
+
 def fd_agrees(got, want, where: str) -> float:
     """flash_decode's output against its plain version's within FD_TOL for
     the output dtype, finite, and on rows that a zero output would fail.
@@ -357,43 +418,57 @@ def held_attention(kops, ref, run) -> dict:
     return held
 
 
-def flash_decode_inputs(gen, rng, shape, q_dtype, kv_dtype, dev):
-    """Seeded q, k, v on the card and ragged lengths in [1, S] that hold 1
-    and S when B > 1."""
+def flash_decode_inputs(gen, rng, shape, q_dtype, kv_dtype, dev,
+                        lens=None):
+    """Seeded q, k, v on the card and the given lengths, or ragged lengths
+    in [1, S] that hold 1 and S when B > 1."""
     b, h, hkv, s, d = shape
     q = torch.randn((b, h, d), generator=gen, device=dev).to(q_dtype)
     k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(kv_dtype)
     v = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(kv_dtype)
-    lens = rng.integers(1, s + 1, b)
-    if b > 1:
-        lens[:2] = (1, s)
-    return q, k, v, torch.from_numpy(lens.astype(np.int32)).to(dev)
+    if lens is None:
+        lens = rng.integers(1, s + 1, b)
+        if b > 1:
+            lens[:2] = (1, s)
+    return q, k, v, torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
 
 
 def check_flash_decode(fd, ref, dev) -> tuple[dict, int]:
     """flash_decode against its plain version over the CPU tests' shapes
-    plus D = 128, and S = 32,768 at D = 128, in all four dtype pairs, with
-    ragged lengths and with none. Returns the largest absolute difference
-    per output dtype and the number of comparisons."""
+    plus D = 128, G = 8 and G = 32, S = 32,768 at D = 128, D = 18 and 40
+    (rows not 16-byte aligned, bf16 D not a multiple of 16) and D = 256,
+    in all four dtype pairs, with ragged lengths and with none; and at S = 32,768 with
+    lengths at the boundaries of the chunk that split_plan picks. Returns
+    the largest absolute difference per output dtype and the number of
+    comparisons."""
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
     shapes = [(b, h, hkv, s, d) for b in (1, 3)
-              for h, hkv in ((4, 2), (12, 2), (4, 4))
+              for h, hkv in ((4, 2), (12, 2), (4, 4), (16, 2), (32, 1))
               for s in (1, 17, 128, 200) for d in (16, 64, 128)]
     shapes += [(4, 12, 2, 24, 128), (3, 12, 2, 32_768, 128)]
+    # rows not 16-byte aligned (D = 18), a bfloat16 D that is not a
+    # multiple of 16 (40), and the largest D over a few chunks
+    shapes += [(3, 12, 2, 200, 18), (3, 12, 2, 200, 40),
+               (2, 12, 2, 3_000, 256)]
+    edge_shape = (4, 12, 2, 32_768, 128)
+    chunk = fd.split_plan(*edge_shape)[0]
+    cases = [(shape, None) for shape in shapes]
+    cases.append((edge_shape, [chunk - 1, chunk, chunk + 1, 2 * chunk]))
     errs = {str(t).removeprefix("torch."): 0.0 for t in FD_DTYPES}
     n = 0
-    for shape in shapes:
+    for shape, edges in cases:
         for q_dtype in FD_DTYPES:
             for kv_dtype in FD_DTYPES:
-                q, k, v, lengths = flash_decode_inputs(gen, rng, shape,
-                                                       q_dtype, kv_dtype, dev)
-                for lens in (lengths, None):
+                q, k, v, lengths = flash_decode_inputs(
+                    gen, rng, shape, q_dtype, kv_dtype, dev, edges)
+                for lens in ((lengths, None) if edges is None
+                             else (lengths,)):
                     err = fd_agrees(
                         fd.flash_decode(q, k, v, lens),
                         ref.flash_decode_ref(q, k, v, lens),
                         f"shape {shape} q {q_dtype} cache {kv_dtype} "
-                        f"lengths {'ragged' if lens is not None else 'None'}")
+                        f"lengths {lens.tolist() if lens is not None else None}")
                     key = str(q_dtype).removeprefix("torch.")
                     errs[key] = max(errs[key], err)
                     n += 1
@@ -458,9 +533,18 @@ def drive_serve(serve, bi, fd, kops, ref, bundle, model) -> dict:
     res = serve.decode_loop(bundle, model, batch=SERVE_BATCH,
                             tokens=SERVE_TOKENS)
     launches = fd.flash_decode.launches
+    by_route = dict(fd.flash_decode.launches_by_route)
+    by_kernel = dict(fd.flash_decode.launches_by_kernel)
     if launches != want:
         raise SystemExit(f"serve loop launched flash_decode {launches} "
                          f"times, expected {want}")
+    if by_route != {"tensor_core": 0, "cuda_core": want}:
+        raise SystemExit(f"serve loop's flash_decode routes {by_route}, "
+                         f"expected all {want} on cuda_core")
+    # a 24-position cache is one chunk: the split kernel writes out itself
+    if by_kernel != {"split": want, "combine": 0}:
+        raise SystemExit(f"serve loop's flash_decode device kernels "
+                         f"{by_kernel}, expected {want} split, no combine")
     toks = res["tokens"]
     if toks.shape != (SERVE_TOKENS, SERVE_BATCH) or toks.min() < 0 \
             or toks.max() >= bundle.cfg.vocab:
@@ -468,6 +552,7 @@ def drive_serve(serve, bi, fd, kops, ref, bundle, model) -> dict:
     return {"batch": SERVE_BATCH, "tokens": SERVE_TOKENS,
             "seconds": res["seconds"], "ms_per_step": res["ms_per_step"],
             "tokens_per_s": res["tokens_per_s"], "launches": launches,
+            "launches_by_route": by_route, "launches_by_kernel": by_kernel,
             "held_max_abs_err": held["max_abs_err"],
             "bitmap_launches": bi.bitmap_intersect.launches
             + bi.fused_expand_intersect.launches,
@@ -506,10 +591,20 @@ def drive_decode_32k(bi, fd, kops, ref, bundle, model, dev,
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = fd.flash_decode.launches
+    by_route = dict(fd.flash_decode.launches_by_route)
+    by_kernel = dict(fd.flash_decode.launches_by_kernel)
     want = bundle.cfg.n_layers * DECODE_STEPS
     if launches != want:
         raise SystemExit(f"decode_32k launched flash_decode {launches} "
                          f"times, expected {want}")
+    if by_route != {"tensor_core": want, "cuda_core": 0}:
+        raise SystemExit(f"decode_32k's flash_decode routes {by_route}, "
+                         f"expected all {want} on tensor_core")
+    # a 32,772-position cache splits: each call merges its chunks
+    if by_kernel != {"split": want, "combine": want}:
+        raise SystemExit(f"decode_32k's flash_decode device kernels "
+                         f"{by_kernel}, expected {want} split and {want} "
+                         f"combine")
     if not bool(torch.isfinite(logits).all()):
         raise SystemExit("decode_32k logits are not finite")
     batch = {"token": token, "lengths": lengths}
@@ -565,7 +660,8 @@ def drive_decode_32k(bi, fd, kops, ref, bundle, model, dev,
             "steps": DECODE_STEPS, "step_ms": step_ms,
             "ms_per_step": float(np.median(step_ms)),
             "tokens_per_s": DECODE_BATCH / (np.median(step_ms) / 1e3),
-            "launches": launches, "vs_plain": diff,
+            "launches": launches, "launches_by_route": by_route,
+            "launches_by_kernel": by_kernel, "vs_plain": diff,
             "peak_bytes": torch.cuda.max_memory_allocated(dev),
             "caches": caches, "lengths": lengths + 1,
             "n_heads": bundle.cfg.n_heads}
@@ -604,19 +700,27 @@ def time_flash_decode(fd, ref, dev, d32k, launches, errs) -> dict:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bytes_per_s = nbytes / (ms / 1e3)
+    chunk, n_chunks, _ = fd.split_plan(b, h, hkv, s, d)
     print(f"time flash_decode: B={b} H={h} Hkv={hkv} D={d} S={s} "
-          f"sum(lengths)={total_len} ms={ms:.6f} plain_ms={plain_ms:.6f} "
-          f"sdpa_ms={library_ms:.6f} (max_abs_err {lib_err:.3g}) "
-          f"bound_ms={bound_ms:.6f} ({bound_by}: {nbytes} B, {flops} flop)",
-          flush=True)
+          f"sum(lengths)={total_len} route={fd.route(q, k, v)} "
+          f"chunk={chunk} n_chunks={n_chunks} ms={ms:.6f} "
+          f"plain_ms={plain_ms:.6f} sdpa_ms={library_ms:.6f} (max_abs_err "
+          f"{lib_err:.3g}) bound_ms={bound_ms:.6f} ({bound_by}: {nbytes} B, "
+          f"{flops} flop) achieved {bytes_per_s / 1e12:.4f} TB/s, "
+          f"{bound_ms / ms:.4f} of the bound", flush=True)
     return {"name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode.py:100",
-            "launches": launches["serve"], "launches_by_path": launches,
+            "launches": launches["serve"]["calls"],
+            "launches_by_path": launches,
+            "kernel_route": fd.route(q, k, v), "chunk": chunk,
+            "n_chunks": n_chunks,
             "max_abs_err": max(max(errs.values()), err),
             "max_abs_err_by_case": errs,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
+            "bytes_per_s": bytes_per_s, "bound_share": bound_ms / ms,
             "library": "scaled_dot_product_attention(enable_gqa=True, "
                        "attn_mask=length mask)",
             "library_max_abs_err": lib_err,
@@ -625,9 +729,10 @@ def time_flash_decode(fd, ref, dev, d32k, launches, errs) -> dict:
                       "cache": "bfloat16"}}
 
 
-def time_kernels(bi, ref, cq, dev, launches, errs) -> list:
+def time_kernels(bi, ref, cq, dev, launches, errs, floor_ms) -> list:
     """Each kernel at the main path's shapes: the dblp size-8 plan's widest
-    extend (most gathered words), T = tile_rows, the plan's own tables."""
+    extend (most gathered words), T = tile_rows, the plan's own tables;
+    beside the launch floor `floor_ms`."""
     from repro_torch.core.engine import upload_plan
     plan = cq.plan
     tables, _ = upload_plan(plan, dev)
@@ -683,6 +788,7 @@ def time_kernels(bi, ref, cq, dev, launches, errs) -> list:
             "max_abs_err": max(errs[name], err),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes", "library_ms": None,
+            "launch_floor_ms": floor_ms,
             "shape": {"k": k, "W": w, "T": t, "K0": k0}})
     return out
 
@@ -712,10 +818,20 @@ def main() -> int:
     dev = torch.device("cuda")
 
     t0 = time.perf_counter()
-    for name, (lib, secs) in build_all(build, (bi.LIBRARY,
-                                               fd.LIBRARY)).items():
-        print(f"build: {lib.name} in {secs:.3f} s", flush=True)
+    with ThreadPoolExecutor(1) as ex:
+        report = ex.submit(ptxas_report, build, fd)
+        for name, (lib, secs) in build_all(build, (bi.LIBRARY,
+                                                   fd.LIBRARY)).items():
+            print(f"build: {lib.name} in {secs:.3f} s", flush=True)
+        for line in report.result():
+            print(f"ptxas: {line}", flush=True)
     print(f"build: all in {time.perf_counter() - t0:.3f} s", flush=True)
+    for way, q16, kv16 in (("tensor_core", 1, 1), ("cuda_core", 1, 0)):
+        smem = fd._lib().cemr_flash_decode_smem_bytes(
+            128, q16, kv16, int(way == "tensor_core"))
+        print(f"ptxas: split_kernel on the {way} route (q bf16={q16}, "
+              f"cache bf16={kv16}, D=128): dynamic smem {smem} B",
+              flush=True)
 
     t0 = time.perf_counter()
     errs = check_kernels(bi, ref, dev)
@@ -764,10 +880,16 @@ def main() -> int:
     shapes_cq = next(w["compiled"] for w in work
                      if (w["dataset"], w["scale"], w["query_size"])
                      == ("dblp", 1.0, 8))
-    kernels = time_kernels(bi, ref, shapes_cq, dev, launches, errs)
+    floor_ms = median_ms(lambda: torch.cuda._sleep(0))
+    print(f"launch floor: torch.cuda._sleep(0) back to back "
+          f"{floor_ms:.6f} ms", flush=True)
+    kernels = time_kernels(bi, ref, shapes_cq, dev, launches, errs, floor_ms)
     kernels.append(time_flash_decode(
         fd, ref, dev, d32k,
-        {"serve": serve_res["launches"], "decode_32k": d32k["launches"]},
+        {path: {"calls": res["launches"],
+                "by_route": res["launches_by_route"],
+                "by_kernel": res["launches_by_kernel"]}
+         for path, res in (("serve", serve_res), ("decode_32k", d32k))},
         {**{f"grid {k}": v for k, v in fd_errs.items()},
          "serve loop": serve_res["held_max_abs_err"],
          "decode_32k step": d32k["vs_plain"]["attention_held"]

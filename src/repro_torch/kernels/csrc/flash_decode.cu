@@ -1,35 +1,67 @@
-// Hopper (sm_90a) kernel for single-token GQA decode attention:
+// Hopper (sm_90a) kernels for single-token GQA decode attention:
 //
 //     out[b, h, :] = softmax_{p < len_b}( q[b, h, :] . k[b, p, h / G, :]
 //                                         * scale ) @ v[b, :, h / G, :]
 //
 // with G = H / Hkv query heads per KV head, len_b = lengths[b] (S when no
 // lengths are given), fp32 accumulation throughout and the output cast to
-// q's dtype. It replaces the TPU kernel
-//   src/repro/kernels/flash_decode.py : flash_decode_pallas (body _kernel)
-// which walks the cache in S-blocks along a sequential grid axis and
-// carries the online-softmax state (m, l, acc) in scratch memory.
+// q's dtype. They replace the TPU kernel
+//   src/repro/kernels/flash_decode.py:100 : flash_decode_pallas (body
+//   _kernel), which walks the cache in S-blocks along a sequential grid
+//   axis and carries the online-softmax state (m, l, acc) in scratch.
 //
-// Bound on this card: memory. Each (b, h) reads len_b rows of K and V
-// (2 * len_b * D elements) for about 4 * len_b * D flops, so the function
-// must move sum_b len_b * Hkv * D * 2 * sizeof(cache) bytes at 3.35 TB/s;
-// the fp32 flops sit far below the CUDA cores' rate.
+// Bound on this card: memory. The function must read sum_b len_b rows of K
+// and of V for each KV head, sum_b len_b * Hkv * D * 2 * sizeof(cache)
+// bytes, at 3.35 TB/s (about 0.16 ms for one qwen2-1.5b layer at
+// decode_32k); its ~4 flops per cache element sit far below any compute
+// rate. The design serves that bound:
 //
-// Design (simple first): one CTA per (b, h), kWarps warps. The warps take
-// interleaved tiles of kRows key positions: tile t of warp w covers
-// positions (t * kWarps + w) * kRows + u, u < kRows. A lane holds the
-// dims d = lane + 32 * j of q and of its running acc, so a row load is
-// coalesced and D < 32 leaves the upper lanes idle. Per tile a warp loads
-// kRows K rows and kRows V rows (all loads in flight together), reduces
-// the kRows dot products with __shfl_xor_sync, and updates its own
-// running (m, l, acc). Positions at or past len_b are never loaded: they
-// would contribute exp(-1e30 - m) = 0 in the TPU kernel. At the end the
-// warps' partials merge in shared memory, each rescaled by exp(m_w - m).
-//
-// Every KV head is read once per query head (G times in all) and the loads
-// are 2 to 4 bytes a lane; splitting S across CTAs (flash-decoding),
-// reading each KV head once for its G query heads, and 16-byte or TMA
-// loads are later work.
+// * Split-KV grid over KV heads (flash-decoding). One CTA per (KV head,
+//   chunk of positions, b), the KV heads of a chunk next to each other in
+//   launch order, so the parts of one cache row span are read at about
+//   the same time. A CTA computes all query heads of its KV head, up to
+//   kHeads = 16 (a larger group is cut into blocks of 16, and each block
+//   reads the KV head once), so a cache byte is read from HBM once, not G
+//   times. The chunk length comes from the shapes alone (the wrapper's
+//   `split_plan`): the host never reads `lengths`. A CTA whose chunk
+//   starts at or past len_b writes an empty partial (m = -inf, l = 0) and
+//   exits, so ragged rows cost what their lengths cost: the longest row is
+//   many CTAs, not one.
+// * Partials and a combine. With more than one chunk each CTA writes
+//   (acc[D], m, l) per query head in fp32 to the wrapper's workspace
+//   (B, H, n_chunks, D + 2), and `combine_kernel` merges the chunks of one
+//   (b, h) with the log-sum-exp rescale and writes out in q's dtype; all
+//   chunks empty gives 0/0 = NaN. With one chunk the CTA writes out
+//   itself.
+// * HBM kept busy. K and V tiles stream through a shared-memory ring with
+//   16-byte cp.async (a bf16 row of D = 128 is 16 lanes x 16 B); while one
+//   tile is computed the next ones are in flight (2 x 35 KB per CTA at
+//   D = 128 in bf16, two CTAs per SM). Rows at or past the chunk's end are
+//   zero-filled by cp.async's source size 0, never read. Each row is
+//   padded by 16 bytes in shared memory, so the 8 rows of an ldmatrix or
+//   of a column read fall on different banks.
+// * The tensor-core route (`split_mma_kernel`): bf16 q over a bf16 cache
+//   with D a multiple of 16, the decode_32k path. Each warp owns 16
+//   positions of a 64-position tile and its own online-softmax state, so a
+//   tile costs one CTA barrier. Q K^T is mma.sync.m16n8k16 bf16 with fp32
+//   accumulation: the (up to) 16 query heads are the A tile's rows, fed by
+//   ldmatrix; bf16 products are exact in fp32, so only the order of the
+//   sums differs from the plain version. The scores stay in registers
+//   (a row's max and sum take two shuffles across its 4 lanes), and their
+//   C fragments are P V's A fragments. P V is mma too, with P split into
+//   two bf16 terms, hi = bf16(P) and lo = bf16(P - hi), so that P keeps
+//   ~16 bits (error ~2^-17 of P, far below a bf16 output step) while V
+//   (bf16, exact) comes in through ldmatrix.trans. The warps' (m, l, acc)
+//   merge in shared memory at the end. wgmma's 64-row minimum would waste
+//   over 90 % of the M = 16 tile.
+// * The CUDA-core route (`split_fma_kernel`): every other case (an fp32 q
+//   or cache, D not a multiple of 16) runs the same split and grouped
+//   structure with fp32 FMA: scores one thread per (position, head),
+//   16-byte shared-memory reads into four independent sums,
+//   softmax per head by one warp in shared memory, P V with each thread
+//   owning two adjacent dims of every few heads. A row that is not 16-byte
+//   aligned (odd D in bf16, say) takes synchronous loads into the ring:
+//   a dispatch on shape before launch.
 //
 // Contract: 1 <= lengths[b] <= S. A larger length is clamped to S; a row
 // with lengths[b] <= 0 attends to nothing and gives 0/0 = NaN, as the
@@ -46,12 +78,15 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRows = 4;                 // key positions per warp per tile
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 128;            // 4 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kHeads = 16;               // query heads per CTA: mma's M
 constexpr int kMaxHeadDim = 256;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+__device__ __forceinline__ float to_float(bf16 x) {
   return __bfloat162float(x);
 }
 
@@ -60,152 +95,763 @@ __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+__device__ __forceinline__ bf16 from_float<bf16>(float x) {
   return __float2bfloat16(x);                  // round to nearest even
 }
 
-// VPL = values per lane: lane holds dims lane + 32 * j, j < VPL.
-template <typename TQ, typename TKV, int VPL>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
-                    const TKV* __restrict__ v,
-                    const int32_t* __restrict__ lengths,
-                    TQ* __restrict__ out, int n_heads, int n_kv, int seq,
-                    int head_dim, float scale) {
-  __shared__ float sm_m[kWarps];
-  __shared__ float sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][kMaxHeadDim];
+// two adjacent cache values as floats (the smem row offset is even)
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
 
-  const int bh = blockIdx.x;
-  const int b = bh / n_heads;
-  const int h = bh - b * n_heads;
-  const int kvh = h / (n_heads / n_kv);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  int len = lengths ? lengths[b] : seq;
-  len = len < 0 ? 0 : (len > seq ? seq : len);
-
-  float qr[VPL], acc[VPL];
-  const TQ* qrow = q + (long long)bh * head_dim;
+// q . k over head_dim elements of two shared-memory rows, q in fp32. Four
+// sums run side by side, so no FMA waits on the one before. VEC: the
+// rows are 16-byte aligned and head_dim * sizeof(TKV) is a multiple of 16,
+// so both come in 16 bytes at a time.
+template <bool VEC>
+__device__ __forceinline__ float dot_row(const float* q, const float* k,
+                                         int head_dim) {
+  float a[4] = {0.f, 0.f, 0.f, 0.f};
+  int d = 0;
+  if constexpr (VEC) {
+    for (; d < head_dim; d += 4) {
+      const float4 qv = *reinterpret_cast<const float4*>(q + d);
+      const float4 kv = *reinterpret_cast<const float4*>(k + d);
+      a[0] = fmaf(qv.x, kv.x, a[0]);
+      a[1] = fmaf(qv.y, kv.y, a[1]);
+      a[2] = fmaf(qv.z, kv.z, a[2]);
+      a[3] = fmaf(qv.w, kv.w, a[3]);
+    }
+  } else {
+    for (; d + 4 <= head_dim; d += 4)
 #pragma unroll
-  for (int j = 0; j < VPL; ++j) {
-    const int d = lane + 32 * j;
-    qr[j] = d < head_dim ? to_float(qrow[d]) : 0.f;
-    acc[j] = 0.f;
+      for (int j = 0; j < 4; ++j) a[j] = fmaf(q[d + j], k[d + j], a[j]);
+    for (; d < head_dim; ++d) a[0] = fmaf(q[d], k[d], a[0]);
   }
-  float m = -INFINITY, l = 0.f;
-
-  // row p of head kvh of batch b starts at ((b * S + p) * Hkv + kvh) * D
-  const long long row_stride = (long long)n_kv * head_dim;
-  const TKV* kbase = k + ((long long)b * seq * n_kv + kvh) * head_dim;
-  const TKV* vbase = v + ((long long)b * seq * n_kv + kvh) * head_dim;
-
-  for (int p0 = warp * kRows; p0 < len; p0 += kWarps * kRows) {
-    float kr[kRows][VPL], vr[kRows][VPL], s[kRows];
+  return (a[0] + a[1]) + (a[2] + a[3]);
+}
+template <bool VEC>
+__device__ __forceinline__ float dot_row(const float* q, const bf16* k,
+                                         int head_dim) {
+  float a[4] = {0.f, 0.f, 0.f, 0.f};
+  int d = 0;
+  if constexpr (VEC) {
+    for (; d < head_dim; d += 8) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(k + d);
+      const __nv_bfloat162* kh =
+          reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-    for (int u = 0; u < kRows; ++u) {
-      const bool valid = p0 + u < len;
-      const TKV* krow = kbase + (long long)(p0 + u) * row_stride;
-      const TKV* vrow = vbase + (long long)(p0 + u) * row_stride;
-#pragma unroll
-      for (int j = 0; j < VPL; ++j) {
-        const int d = lane + 32 * j;
-        const bool in = valid && d < head_dim;
-        kr[u][j] = in ? to_float(__ldg(krow + d)) : 0.f;
-        vr[u][j] = in ? to_float(__ldg(vrow + d)) : 0.f;
+      for (int j = 0; j < 2; ++j) {
+        const float4 qv = *reinterpret_cast<const float4*>(q + d + 4 * j);
+        const float2 k0 = __bfloat1622float2(kh[2 * j]);
+        const float2 k1 = __bfloat1622float2(kh[2 * j + 1]);
+        a[0] = fmaf(qv.x, k0.x, a[0]);
+        a[1] = fmaf(qv.y, k0.y, a[1]);
+        a[2] = fmaf(qv.z, k1.x, a[2]);
+        a[3] = fmaf(qv.w, k1.y, a[3]);
       }
     }
+  } else {
+    for (; d + 4 <= head_dim; d += 4)
 #pragma unroll
-    for (int u = 0; u < kRows; ++u) {
-      float dot = 0.f;
+      for (int j = 0; j < 4; ++j)
+        a[j] = fmaf(q[d + j], __bfloat162float(k[d + j]), a[j]);
+    for (; d < head_dim; ++d)
+      a[0] = fmaf(q[d], __bfloat162float(k[d]), a[0]);
+  }
+  return (a[0] + a[1]) + (a[2] + a[3]);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const int src_bytes = valid ? 16 : 0;        // 0: zero-fill, no read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of
+// matrix i, and lane t receives (row t / 4, cols 2 (t % 4), + 1) of each
+// (of its transpose with .trans).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c (16 x 8, fp32) += a (16 x 16 bf16, row-major) * b (16 x 8, col-major)
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 h) {
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+// (x, y) = hi + lo to ~16 bits: hi = bf16(x, y), lo = bf16(rest), packed
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - __low2float(h),
+                                    y - __high2float(h)));
+}
+
+// Which query heads and positions a CTA owns.
+struct Cta {
+  int b, kvh, c;
+  int h0;        // first query head
+  int gb;        // query heads of this CTA, <= kHeads
+  int start;     // first position of the chunk
+  int end;       // one past its last valid position (<= start: empty)
+};
+
+__device__ __forceinline__ Cta cta_coords(const int32_t* lengths,
+                                          int n_heads, int n_kv, int seq,
+                                          int chunk) {
+  Cta t;
+  const int group = n_heads / n_kv;
+  const int n_hblk = (group + kHeads - 1) / kHeads;
+  t.kvh = blockIdx.x / n_hblk;
+  const int hb = blockIdx.x - t.kvh * n_hblk;
+  t.c = blockIdx.y;
+  t.b = blockIdx.z;
+  t.h0 = t.kvh * group + hb * kHeads;
+  t.gb = min(kHeads, group - hb * kHeads);
+  int len = lengths ? lengths[t.b] : seq;
+  len = len < 0 ? 0 : (len > seq ? seq : len);
+  t.start = t.c * chunk;
+  t.end = min(t.start + chunk, len);
+  return t;
+}
+
+// 16-byte cp.async of a tile of TP cache rows of D elements into smem rows
+// of RE elements. Each copy of a thread lands at the same (row, column) in
+// every tile, so its offsets are worked out once.
+template <typename T, int TP, int RE, int DPAD>
+struct TileLoader {
+  static constexpr int E = 16 / (int)sizeof(T);
+  static constexpr int kItems = (TP * DPAD / E + kThreads - 1) / kThreads;
+  int s_off[kItems], g_off[kItems], row[kItems];
+
+  __device__ __forceinline__ TileLoader(int head_dim, int row_stride) {
+    const int per_row = head_dim / E;
 #pragma unroll
-      for (int j = 0; j < VPL; ++j) dot += qr[j] * kr[u][j];
-      s[u] = dot;
+    for (int j = 0; j < kItems; ++j) {
+      const int it = threadIdx.x + j * kThreads;
+      const int r = it / per_row;
+      const int e = (it - r * per_row) * E;
+      row[j] = it < TP * per_row ? r : TP;
+      s_off[j] = r * RE + e;
+      g_off[j] = r * row_stride + e;
     }
+  }
+  // rows p0 + r, r < TP, of kb and vb (row p at p * row_stride); rows at
+  // or past `end` are zero-filled
+  __device__ __forceinline__ void load(T* kd, T* vd, const T* kb,
+                                       const T* vb, int p0, int end,
+                                       int row_stride) const {
+    const T* kt = kb + (long long)p0 * row_stride;
+    const T* vt = vb + (long long)p0 * row_stride;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int u = 0; u < kRows; ++u)
-        s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
+    for (int j = 0; j < kItems; ++j) {
+      if (row[j] >= TP) continue;
+      const bool valid = p0 + row[j] < end;
+      cp_async16(kd + s_off[j], valid ? kt + g_off[j] : kt, valid);
+      cp_async16(vd + s_off[j], valid ? vt + g_off[j] : vt, valid);
     }
-    // p0 < len, so row u = 0 is always valid: tile_max is finite
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int u = 0; u < kRows; ++u) {
-      s[u] = p0 + u < len ? s[u] * scale : -INFINITY;
-      tile_max = fmaxf(tile_max, s[u]);
-    }
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);           // m = -inf gives 0
-    float psum = 0.f;
-#pragma unroll
-    for (int u = 0; u < kRows; ++u) {
-      s[u] = expf(s[u] - m_new);                   // masked rows give 0
-      psum += s[u];
-    }
-    l = l * alpha + psum;
-#pragma unroll
-    for (int j = 0; j < VPL; ++j) {
-      float a = acc[j] * alpha;
-#pragma unroll
-      for (int u = 0; u < kRows; ++u) a += s[u] * vr[u][j];
-      acc[j] = a;
-    }
-    m = m_new;
+  }
+};
+
+// ---------------------------------------------------------------------
+// Tensor-core route: bf16 q and cache, D % 16 == 0, 16-byte aligned rows.
+
+template <int DPAD>
+struct MmaLayout {
+  static constexpr int kTile = 64;                 // 16 positions a warp
+  static constexpr int kStages = 3;
+  static constexpr int kRowElems = DPAD + 8;       // + 16 bytes
+  static constexpr int kStageElems = kTile * kRowElems;
+  static constexpr int kRingBytes = 2 * kStages * kStageElems * 2;
+  static constexpr int kSmemBytes = kRingBytes + kHeads * kRowElems * 2;
+  // the end-of-loop merge reuses the ring: m, l, acc per (warp, head)
+  static_assert(kWarps * kHeads * (2 + DPAD) * 4 <= kRingBytes,
+                "merge buffers must fit in the ring");
+};
+
+template <int DPAD>
+__global__ void __launch_bounds__(kThreads)
+split_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v,
+                 const int32_t* __restrict__ lengths, bf16* __restrict__ out,
+                 float* __restrict__ ws, int n_heads, int n_kv, int seq,
+                 int head_dim, int chunk, int n_chunks, float scale) {
+  using L = MmaLayout<DPAD>;
+  constexpr int TP = L::kTile;
+  constexpr int RE = L::kRowElems;
+  constexpr int NS = L::kStages;
+  constexpr int kNT = DPAD / 8;                    // 8-dim output tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + NS * L::kStageElems;
+  bf16* qs = vs + NS * L::kStageElems;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const Cta t = cta_coords(lengths, n_heads, n_kv, seq, chunk);
+  const int n_tiles = t.start < t.end ? (t.end - t.start + TP - 1) / TP : 0;
+
+  // Q rows of this CTA's heads; rows >= gb and dims >= D are zero
+  for (int i = tid; i < kHeads * DPAD; i += kThreads) {
+    const int g = i / DPAD, d = i % DPAD;
+    qs[g * RE + d] =
+        (g < t.gb && d < head_dim)
+            ? q[((long long)t.b * n_heads + t.h0 + g) * head_dim + d]
+            : __float2bfloat16(0.f);
   }
 
-  // merge the warps' partials; a warp that saw no position has m = -inf
-  // and weight 0
+  // row p of head kvh of batch b starts at ((b * S + p) * Hkv + kvh) * D
+  const int row_stride = n_kv * head_dim;
+  const bf16* kbase = k + ((long long)t.b * seq * n_kv + t.kvh) * head_dim;
+  const bf16* vbase = v + ((long long)t.b * seq * n_kv + t.kvh) * head_dim;
+  const TileLoader<bf16, TP, RE, DPAD> loader(head_dim, row_stride);
 #pragma unroll
-  for (int j = 0; j < VPL; ++j) {
-    const int d = lane + 32 * j;
-    if (d < head_dim) sm_acc[warp][d] = acc[j];
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < n_tiles)
+      loader.load(ks + i * L::kStageElems, vs + i * L::kStageElems, kbase,
+                  vbase, t.start + i * TP, t.end, row_stride);
+    cp_async_commit();
   }
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
+
+  // lane = 4 gid + tig holds C rows gid and gid + 8 (query heads),
+  // columns 2 tig and 2 tig + 1 of each 8-wide tile
+  const int gid = lane >> 2, tig = lane & 3;
+  // ldmatrix row addresses: lane 8 m + r gives row r of matrix m
+  const int lr = lane & 7, lm = lane >> 3;
+  const int q_off = (lr + (lm & 1) * 8) * RE + (lm >> 1) * 8;
+  const int k_off = (warp * 16 + lr + (lm >> 1) * 8) * RE + (lm & 1) * 8;
+  const int v_off = (warp * 16 + lr + (lm & 1) * 8) * RE + (lm >> 1) * 8;
+
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows gid, gid + 8
+  float l_run[2] = {0.f, 0.f};              // this lane's share of l
+  float acc[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<NS - 2>();            // this thread's copies of tile i
+    __syncthreads();                    // everyone's; tile i - 1 is done
+    if (i + NS - 1 < n_tiles) {
+      const int st = (i + NS - 1) % NS;
+      loader.load(ks + st * L::kStageElems, vs + st * L::kStageElems, kbase,
+                  vbase, t.start + (i + NS - 1) * TP, t.end, row_stride);
+    }
+    cp_async_commit();
+    const int p0 = t.start + i * TP + warp * 16;   // this warp's positions
+    if (p0 >= t.end) continue;                     // warp-uniform
+    const bf16* kt = ks + (i % NS) * L::kStageElems;
+    const bf16* vt = vs + (i % NS) * L::kStageElems;
+
+    // s (16 heads x 16 positions) = Q K^T over D in steps of 16
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    for (int kk = 0; kk < head_dim; kk += 16) {
+      uint32_t a[4], b[4];
+      ldmatrix_x4(a, qs + q_off + kk);
+      ldmatrix_x4(b, kt + k_off + kk);
+      mma_bf16_16816(s[0], a, b[0], b[1]);
+      mma_bf16_16816(s[1], a, b[2], b[3]);
+    }
+
+    // online softmax; positions at or past the end get -inf
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = p0 + n * 8 + 2 * tig + (e & 1) < t.end;
+        s[n][e] = valid ? s[n][e] * scale : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    float alpha[2], base[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      base[r] = m_new == -INFINITY ? 0.f : m_new;  // no position yet
+      alpha[r] = expf(m_run[r] - base[r]);         // m_run = -inf gives 0
+      m_run[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = expf(s[n][e] - base[e >> 1]);     // masked: 0
+        sum[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // acc += P V: the score fragments are the A fragments (k = position)
+    uint32_t ph[4], pl[4];
+    split_bf16(s[0][0], s[0][1], ph[0], pl[0]);
+    split_bf16(s[0][2], s[0][3], ph[1], pl[1]);
+    split_bf16(s[1][0], s[1][1], ph[2], pl[2]);
+    split_bf16(s[1][2], s[1][3], ph[3], pl[3]);
+#pragma unroll
+    for (int n = 0; n < kNT; n += 2) {
+      if (n * 8 >= head_dim) break;
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, vt + v_off + n * 8);
+      mma_bf16_16816(acc[n], ph, b[0], b[1]);
+      mma_bf16_16816(acc[n], pl, b[0], b[1]);
+      mma_bf16_16816(acc[n + 1], ph, b[2], b[3]);
+      mma_bf16_16816(acc[n + 1], pl, b[2], b[3]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                      // the ring is free for the merge
+
+  // merge the warps: m, l, acc per (warp, head) in shared memory
+  float* m_w = reinterpret_cast<float*>(smem);      // [kWarps][kHeads]
+  float* l_w = m_w + kWarps * kHeads;
+  float* a_w = l_w + kWarps * kHeads;               // [kWarps][kHeads][DPAD]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    if (tig == 0) {
+      m_w[warp * kHeads + gid + 8 * r] = m_run[r];
+      l_w[warp * kHeads + gid + 8 * r] = l_run[r];
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    if (n * 8 >= head_dim) break;
+    float* row0 = a_w + (warp * kHeads + gid) * DPAD + n * 8 + 2 * tig;
+    float* row8 = row0 + 8 * DPAD;
+    row0[0] = acc[n][0];
+    row0[1] = acc[n][1];
+    row8[0] = acc[n][2];
+    row8[1] = acc[n][3];
   }
   __syncthreads();
-  const int t = threadIdx.x;
-  if (t < head_dim) {
+  const bool empty = n_tiles == 0;
+  const int wrow = head_dim + 2;
+  for (int i = tid; i < t.gb * head_dim; i += kThreads) {
+    const int g = i / head_dim, d = i - g * head_dim;
     float m_all = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) m_all = fmaxf(m_all, sm_m[w]);
+    for (int w = 0; w < kWarps; ++w)
+      m_all = fmaxf(m_all, m_w[w * kHeads + g]);
     float l_all = 0.f, a_all = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float c = sm_m[w] == -INFINITY ? 0.f : expf(sm_m[w] - m_all);
-      l_all += sm_l[w] * c;
-      a_all += sm_acc[w][t] * c;
+      const float mw = m_w[w * kHeads + g];
+      if (mw == -INFINITY) continue;               // saw no position
+      const float c = expf(mw - m_all);
+      l_all += c * l_w[w * kHeads + g];
+      a_all += c * a_w[(w * kHeads + g) * DPAD + d];
     }
-    out[(long long)bh * head_dim + t] = from_float<TQ>(a_all / l_all);
+    const long long bh = (long long)t.b * n_heads + t.h0 + g;
+    if (n_chunks == 1) {
+      out[bh * head_dim + d] = __float2bfloat16(a_all / l_all);
+    } else {
+      float* wp = ws + (bh * n_chunks + t.c) * wrow;
+      if (!empty) wp[d] = a_all;                   // an empty acc is unread
+      if (d == 0) {
+        wp[head_dim] = m_all;
+        wp[head_dim + 1] = l_all;
+      }
+    }
   }
 }
 
+// ---------------------------------------------------------------------
+// CUDA-core route: every other case, fp32 FMA.
+
+// DPAD is D rounded up to a power of two in [32, 256]; a ring stage holds
+// kTile rows of K and of V (16 to 32 rows, about 16 KB each): the more
+// rows a tile, the fewer barriers and softmax rounds a position.
+template <typename TKV, int DPAD>
+struct FmaLayout {
+  static constexpr int kStages = 3;
+  static constexpr int kRowBytes = DPAD * (int)sizeof(TKV);
+  static constexpr int kTileRaw = 16384 / kRowBytes;
+  static constexpr int kTile =
+      kTileRaw < 16 ? 16 : (kTileRaw > 32 ? 32 : kTileRaw);
+  static constexpr int kRowElems = DPAD + 16 / (int)sizeof(TKV);
+  static constexpr int kStageElems = kTile * kRowElems;  // one matrix
+  static constexpr int kSRow = kTile + 4;                // score row, fp32
+  static constexpr int kRingBytes =
+      2 * kStages * kStageElems * (int)sizeof(TKV);
+  static constexpr int kScoreBytes = kHeads * kSRow * 4;
+  static constexpr int kSmemBytes =
+      kRingBytes + kScoreBytes + 3 * kHeads * 4 + kHeads * DPAD * 4;
+  // P V: thread t owns dims 2c, 2c+1 (c = t % kPairs) of the heads
+  // g0 + j * kGStride, j < kNG (g0 = t / kPairs)
+  static constexpr int kPairs = DPAD / 2;
+  static constexpr int kGStride = kThreads / kPairs;
+  static constexpr int kNG = kHeads / kGStride;
+  static_assert(kThreads % kPairs == 0, "DPAD/2 must divide the CTA");
+};
+
+// VEC: rows are 16-byte aligned and D * sizeof(TKV) is a multiple of 16,
+// so tiles stream with cp.async; otherwise synchronous loads.
+template <typename TQ, typename TKV, int DPAD, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+split_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                 const TKV* __restrict__ v,
+                 const int32_t* __restrict__ lengths, TQ* __restrict__ out,
+                 float* __restrict__ ws, int n_heads, int n_kv, int seq,
+                 int head_dim, int chunk, int n_chunks, float scale) {
+  using L = FmaLayout<TKV, DPAD>;
+  constexpr int TP = L::kTile;
+  constexpr int RE = L::kRowElems;
+  constexpr int NS = L::kStages;
+  extern __shared__ __align__(16) unsigned char smem[];
+  TKV* ks = reinterpret_cast<TKV*>(smem);
+  TKV* vs = ks + NS * L::kStageElems;
+  float* ss = reinterpret_cast<float*>(smem + L::kRingBytes);
+  float* alpha_s = ss + kHeads * L::kSRow;
+  float* m_s = alpha_s + kHeads;
+  float* l_s = m_s + kHeads;
+  float* qs = l_s + kHeads;                          // [kHeads][DPAD]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const Cta t = cta_coords(lengths, n_heads, n_kv, seq, chunk);
+  const int gb = t.gb, end = t.end;
+  const int n_tiles = t.start < end ? (end - t.start + TP - 1) / TP : 0;
+
+  for (int i = tid; i < kHeads * DPAD; i += kThreads) {
+    const int g = i / DPAD, d = i % DPAD;
+    qs[i] = (g < gb && d < head_dim)
+                ? to_float(q[((long long)t.b * n_heads + t.h0 + g) * head_dim
+                             + d])
+                : 0.f;
+  }
+
+  const int row_stride = n_kv * head_dim;
+  const TKV* kbase = k + ((long long)t.b * seq * n_kv + t.kvh) * head_dim;
+  const TKV* vbase = v + ((long long)t.b * seq * n_kv + t.kvh) * head_dim;
+  const TileLoader<TKV, TP, RE, DPAD> loader(head_dim, row_stride);
+  auto load_tile = [&](int i) {
+    const int p0 = t.start + i * TP;
+    TKV* kd = ks + (i % NS) * L::kStageElems;
+    TKV* vd = vs + (i % NS) * L::kStageElems;
+    if constexpr (VEC) {
+      loader.load(kd, vd, kbase, vbase, p0, end, row_stride);
+    } else {
+      for (int it = tid; it < TP * head_dim; it += kThreads) {
+        const int r = it / head_dim, e = it - r * head_dim;
+        const bool valid = p0 + r < end;
+        const long long off = (long long)(p0 + r) * row_stride + e;
+        kd[r * RE + e] = valid ? kbase[off] : from_float<TKV>(0.f);
+        vd[r * RE + e] = valid ? vbase[off] : from_float<TKV>(0.f);
+      }
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < n_tiles) load_tile(i);
+    cp_async_commit();
+  }
+
+  // softmax state: warp w owns heads w + kWarps * r, r < kHeads / kWarps
+  constexpr int kRowsPerWarp = kHeads / kWarps;
+  float m_run[kRowsPerWarp], l_run[kRowsPerWarp];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.f;
+  }
+  const int pair = tid % L::kPairs;
+  const int g0 = tid / L::kPairs;
+  // heads g0 + j * kGStride < gb carry output
+  const int n_own = g0 < gb ? (gb - g0 + L::kGStride - 1) / L::kGStride : 0;
+  float acc[L::kNG][2];
+#pragma unroll
+  for (int j = 0; j < L::kNG; ++j) acc[j][0] = acc[j][1] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<NS - 2>();            // this thread's copies of tile i
+    __syncthreads();                    // everyone's; tile i - 1 is done
+    if (i + NS - 1 < n_tiles) load_tile(i + NS - 1);
+    cp_async_commit();
+    const TKV* kt = ks + (i % NS) * L::kStageElems;
+    const TKV* vt = vs + (i % NS) * L::kStageElems;
+    const int p0 = t.start + i * TP;
+
+    // scores s[g][p] = q_g . k_p * scale, -inf at or past the chunk's end
+    {
+      constexpr int kGStep = kThreads / TP;
+      const int p = tid % TP;
+      const TKV* krow = kt + p * RE;
+      const bool valid = p0 + p < end;
+      for (int g = tid / TP; g < gb; g += kGStep) {
+        const float dot = dot_row<VEC>(qs + g * DPAD, krow, head_dim);
+        ss[g * L::kSRow + p] = valid ? dot * scale : -INFINITY;
+      }
+    }
+    __syncthreads();
+
+    // online softmax over the tile: p = exp(s - m_new) back into ss
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int g = warp + kWarps * r;
+      if (g >= gb) continue;                        // warp-uniform
+      float* srow = ss + g * L::kSRow;
+      constexpr int kPerLane = (TP + 31) / 32;
+      float sv[kPerLane];
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j) {
+        const int p = lane + 32 * j;
+        sv[j] = p < TP ? srow[p] : -INFINITY;
+        tmax = fmaxf(tmax, sv[j]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+      // the tile holds a position < end, so tmax is finite
+      const float m_new = fmaxf(m_run[r], tmax);
+      const float alpha = expf(m_run[r] - m_new);   // m = -inf gives 0
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j) {
+        const int p = lane + 32 * j;
+        const float e = expf(sv[j] - m_new);        // masked: 0
+        if (p < TP) srow[p] = e;
+        psum += e;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      l_run[r] = l_run[r] * alpha + psum;
+      m_run[r] = m_new;
+      if (lane == 0) alpha_s[g] = alpha;
+    }
+    __syncthreads();
+
+    // acc[g][2 pair + {0, 1}] = acc * alpha_g + sum_p p[g][p] v[p][.]
+    if (n_own > 0) {
+      const TKV* vcol = vt + 2 * pair;
+#pragma unroll
+      for (int j = 0; j < L::kNG; ++j) {
+        if (j < n_own) {
+          const float al = alpha_s[g0 + j * L::kGStride];
+          acc[j][0] *= al;
+          acc[j][1] *= al;
+        }
+      }
+#pragma unroll 2
+      for (int p = 0; p < TP; p += 4) {
+        float2 vv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) vv[u] = load2(vcol + (p + u) * RE);
+#pragma unroll
+        for (int j = 0; j < L::kNG; ++j) {
+          if (j < n_own) {
+            const float4 pw = *reinterpret_cast<const float4*>(
+                ss + (g0 + j * L::kGStride) * L::kSRow + p);
+            acc[j][0] += pw.x * vv[0].x + pw.y * vv[1].x + pw.z * vv[2].x
+                         + pw.w * vv[3].x;
+            acc[j][1] += pw.x * vv[0].y + pw.y * vv[1].y + pw.z * vv[2].y
+                         + pw.w * vv[3].y;
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();                   // no copy outlives the CTA
+
+  // epilogue: m and l of each head to shared memory, then the partial
+  // (or, with one chunk, the output) of the dims this thread owns
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int g = warp + kWarps * r;
+      m_s[g] = m_run[r];
+      l_s[g] = l_run[r];
+    }
+  }
+  __syncthreads();
+  const int d0 = 2 * pair;
+  const int wrow = head_dim + 2;
+#pragma unroll
+  for (int j = 0; j < L::kNG; ++j) {
+    if (j >= n_own) continue;
+    const int g = g0 + j * L::kGStride;
+    const long long bh = (long long)t.b * n_heads + t.h0 + g;
+    if (n_chunks == 1) {
+      const float l = l_s[g];                        // 0 for an empty row
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (d0 + e < head_dim)
+          out[bh * head_dim + d0 + e] = from_float<TQ>(acc[j][e] / l);
+      continue;
+    }
+    float* wp = ws + (bh * n_chunks + t.c) * wrow;
+    if (n_tiles > 0) {                               // an empty acc is unread
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (d0 + e < head_dim) wp[d0 + e] = acc[j][e];
+    }
+    if (pair == 0) {
+      wp[head_dim] = m_s[g];
+      wp[head_dim + 1] = l_s[g];
+    }
+  }
+}
+
+// out[b, h, :] = sum_c exp(m_c - M) acc_c / sum_c exp(m_c - M) l_c over
+// the chunks of one (b, h), M = max_c m_c; chunks with m_c = -inf (no
+// position) are skipped, so a row with none gives 0/0 = NaN.
+template <typename TQ>
+__global__ void __launch_bounds__(kThreads)
+combine_kernel(const float* __restrict__ ws, TQ* __restrict__ out,
+               int n_chunks, int head_dim) {
+  const int wrow = head_dim + 2;
+  const float* w = ws + (long long)blockIdx.x * n_chunks * wrow;
+  float m_all = -INFINITY;
+  for (int c = 0; c < n_chunks; ++c)
+    m_all = fmaxf(m_all, w[c * wrow + head_dim]);
+  for (int d = threadIdx.x; d < head_dim; d += blockDim.x) {
+    float l = 0.f, a = 0.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      const float* wc = w + c * wrow;
+      const float mc = wc[head_dim];
+      if (mc == -INFINITY) continue;
+      const float s = expf(mc - m_all);
+      l += s * wc[head_dim + 1];
+      a += s * wc[d];
+    }
+    out[(long long)blockIdx.x * head_dim + d] = from_float<TQ>(a / l);
+  }
+}
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int32_t* lengths;
+  void* out;
+  float* ws;
+  int b, h, hkv, s, d, chunk, n_chunks;
+  float scale;
+  cudaStream_t stream;
+};
+
+// Launch one split kernel on the grid (KV head x head block, chunk, b):
+// the KV heads of a chunk innermost.
+template <typename TQ, typename TKV, auto Kernel>
+cudaError_t launch_split(int smem_bytes, const Args& a) {
+  // shared memory above 48 KB must be asked for, once per kernel
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (attr != cudaSuccess) return attr;
+  const int n_hblk = (a.h / a.hkv + kHeads - 1) / kHeads;
+  const dim3 grid((unsigned)(a.hkv * n_hblk), (unsigned)a.n_chunks,
+                  (unsigned)a.b);
+  Kernel<<<grid, kThreads, smem_bytes, a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
+      static_cast<const TKV*>(a.v), a.lengths, static_cast<TQ*>(a.out), a.ws,
+      a.h, a.hkv, a.s, a.d, a.chunk, a.n_chunks, a.scale);
+  return cudaGetLastError();
+}
+
+bool aligned16(const Args& a, int elem_bytes) {
+  return (a.d * elem_bytes) % 16 == 0 && (uintptr_t)a.k % 16 == 0
+         && (uintptr_t)a.v % 16 == 0;
+}
+
+// The kernel of each route for one DPAD (D rounded up to 32, 64, 128 or
+// 256): its launch and its dynamic shared memory.
+template <int DPAD>
+struct Mma {
+  static constexpr int kSmem = MmaLayout<DPAD>::kSmemBytes;
+  static cudaError_t run(const Args& a) {
+    return launch_split<bf16, bf16, split_mma_kernel<DPAD>>(kSmem, a);
+  }
+};
 template <typename TQ, typename TKV>
-cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         const int32_t* lengths, void* out, int b, int h,
-                         int hkv, int s, int d, float scale,
-                         cudaStream_t stream) {
-  const dim3 grid((unsigned)(b * h));
-  const dim3 block(kWarps * 32);
-  const TQ* qp = static_cast<const TQ*>(q);
-  const TKV* kp = static_cast<const TKV*>(k);
-  const TKV* vp = static_cast<const TKV*>(v);
-  TQ* op = static_cast<TQ*>(out);
-  if (d <= 32)
-    flash_decode_kernel<TQ, TKV, 1><<<grid, block, 0, stream>>>(
-        qp, kp, vp, lengths, op, h, hkv, s, d, scale);
-  else if (d <= 64)
-    flash_decode_kernel<TQ, TKV, 2><<<grid, block, 0, stream>>>(
-        qp, kp, vp, lengths, op, h, hkv, s, d, scale);
-  else if (d <= 128)
-    flash_decode_kernel<TQ, TKV, 4><<<grid, block, 0, stream>>>(
-        qp, kp, vp, lengths, op, h, hkv, s, d, scale);
-  else
-    flash_decode_kernel<TQ, TKV, 8><<<grid, block, 0, stream>>>(
-        qp, kp, vp, lengths, op, h, hkv, s, d, scale);
+struct Fma {
+  template <int DPAD>
+  struct At {
+    static constexpr int kSmem = FmaLayout<TKV, DPAD>::kSmemBytes;
+    static cudaError_t run(const Args& a) {
+      if (aligned16(a, (int)sizeof(TKV)))
+        return launch_split<TQ, TKV, split_fma_kernel<TQ, TKV, DPAD, true>>(
+            kSmem, a);
+      return launch_split<TQ, TKV, split_fma_kernel<TQ, TKV, DPAD, false>>(
+          kSmem, a);
+    }
+  };
+};
+
+// f(Route<DPAD>{}) for the DPAD that holds d
+template <template <int> class Route, typename F>
+auto with_dpad(int d, F f) {
+  if (d <= 32) return f(Route<32>{});
+  if (d <= 64) return f(Route<64>{});
+  if (d <= 128) return f(Route<128>{});
+  return f(Route<256>{});
+}
+
+// f(Route<DPAD>{}) for the route of these dtypes and the DPAD of d
+template <typename F>
+auto with_route(int d, int q_bf16, int kv_bf16, int tensor_core, F f) {
+  if (tensor_core) return with_dpad<Mma>(d, f);
+  if (q_bf16 && kv_bf16) return with_dpad<Fma<bf16, bf16>::At>(d, f);
+  if (q_bf16) return with_dpad<Fma<bf16, float>::At>(d, f);
+  if (kv_bf16) return with_dpad<Fma<float, bf16>::At>(d, f);
+  return with_dpad<Fma<float, float>::At>(d, f);
+}
+
+template <typename TQ>
+cudaError_t launch_combine(const Args& a) {
+  combine_kernel<TQ><<<(unsigned)(a.b * a.h), kThreads, 0, a.stream>>>(
+      a.ws, static_cast<TQ*>(a.out), a.n_chunks, a.d);
   return cudaGetLastError();
 }
 
@@ -214,6 +860,15 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
 extern "C" {
 
 int cemr_flash_decode_max_head_dim() { return kMaxHeadDim; }
+int cemr_flash_decode_max_heads_per_cta() { return kHeads; }
+
+// Dynamic shared memory of the split kernel that these arguments select
+// (ptxas -v reports static shared memory only).
+int cemr_flash_decode_smem_bytes(int d, int q_bf16, int kv_bf16,
+                                 int tensor_core) {
+  return with_route(d, q_bf16, kv_bf16, tensor_core,
+                    [](auto route) { return decltype(route)::kSmem; });
+}
 
 const char* cemr_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -221,31 +876,38 @@ const char* cemr_error_string(int code) {
 
 // q (B, H, D), k and v (B, S, Hkv, D), out (B, H, D), all contiguous;
 // lengths (B,) int32 or NULL (= S). q_bf16 / kv_bf16 select bfloat16 over
-// float32 for q and out / for k and v. Returns cudaGetLastError() after the
-// launch (0 = cudaSuccess), or cudaErrorInvalidValue for shapes outside
-// the contract.
+// float32 for q and out / for k and v. tensor_core selects the mma route
+// (bf16 q and cache, D a multiple of 16, 16-byte aligned k and v). The
+// positions split into n_chunks chunks of `chunk`; with n_chunks > 1, ws
+// is an fp32 workspace (B, H, n_chunks, D + 2) for the partials and a
+// second kernel merges them. *n_launched is set to the number of kernels
+// launched without error (1: the split kernel, 2: and the combine).
+// Returns the first non-zero cudaGetLastError() after a launch
+// (0 = cudaSuccess), or cudaErrorInvalidValue for arguments outside the
+// contract.
 int cemr_flash_decode(const void* q, const void* k, const void* v,
-                      const int32_t* lengths, void* out, int b, int h,
-                      int hkv, int s, int d, float scale, int q_bf16,
-                      int kv_bf16, void* stream) {
+                      const int32_t* lengths, void* out, float* ws, int b,
+                      int h, int hkv, int s, int d, int chunk, int n_chunks,
+                      float scale, int q_bf16, int kv_bf16, int tensor_core,
+                      void* stream, int* n_launched) {
+  *n_launched = 0;
   if (b < 1 || s < 1 || d < 1 || d > kMaxHeadDim || hkv < 1 || h < hkv ||
-      h % hkv != 0)
+      h % hkv != 0 || chunk < 1 || n_chunks < 1 ||
+      (long long)chunk * n_chunks < s ||
+      (long long)chunk * (n_chunks - 1) >= s || (n_chunks > 1 && !ws))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (q_bf16 && kv_bf16)
-    err = launch_typed<__nv_bfloat16, __nv_bfloat16>(q, k, v, lengths, out,
-                                                     b, h, hkv, s, d, scale,
-                                                     st);
-  else if (q_bf16)
-    err = launch_typed<__nv_bfloat16, float>(q, k, v, lengths, out, b, h,
-                                             hkv, s, d, scale, st);
-  else if (kv_bf16)
-    err = launch_typed<float, __nv_bfloat16>(q, k, v, lengths, out, b, h,
-                                             hkv, s, d, scale, st);
-  else
-    err = launch_typed<float, float>(q, k, v, lengths, out, b, h, hkv, s, d,
-                                     scale, st);
+  const Args a{q, k, v, lengths, out, ws, b, h, hkv, s, d, chunk, n_chunks,
+               scale, (cudaStream_t)stream};
+  if (tensor_core && !(q_bf16 && kv_bf16 && d % 16 == 0 && aligned16(a, 2)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      with_route(d, q_bf16, kv_bf16, tensor_core,
+                 [&a](auto route) { return decltype(route)::run(a); });
+  if (err != cudaSuccess) return (int)err;
+  *n_launched = 1;
+  if (n_chunks == 1) return 0;
+  err = q_bf16 ? launch_combine<bf16>(a) : launch_combine<float>(a);
+  if (err == cudaSuccess) *n_launched = 2;
   return (int)err;
 }
 

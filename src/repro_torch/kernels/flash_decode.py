@@ -1,16 +1,32 @@
-"""Wrapper of the Hopper decode-attention kernel (`csrc/flash_decode.cu`).
+"""Wrapper of the Hopper decode-attention kernels (`csrc/flash_decode.cu`).
 
     flash_decode(q, k, v, lengths=None) -> out (B, H, D)
 
 q (B, H, D) and the cache k, v (B, S, Hkv, D) are float32 or bfloat16 (the
 cache may differ from q); out has q's dtype. The wrapper takes the plain
 torch version (`ref.flash_decode_ref`) only because its tensors lie on the
-CPU; CUDA tensors launch the kernel, and anything else raises. It counts
-its kernel launches in a plain integer attribute, `launches`.
+CPU; CUDA tensors launch the kernels, and anything else raises.
 
-Contract (kernel and plain version alike): 1 <= lengths[b] <= S. A row with
-lengths[b] == 0 has nothing to attend to and gives NaN; the wrapper does
-not check the values, which would cost a device-to-host sync per call.
+On the card the positions are split into chunks (`split_plan`, from the
+shapes alone) and one CTA per (chunk, KV head, b) computes all query heads
+of its KV head. It takes one of two routes, chosen before the launch from
+dtypes, D and alignment (`route`): "tensor_core" (bf16 q and cache, D a
+multiple of 16: the scores on mma.sync) or "cuda_core" (every other case:
+fp32 FMA). With more than one chunk the wrapper allocates an fp32
+workspace (B, H, n_chunks, D + 2) with `torch.empty` for the per-chunk
+partials, and a second kernel merges them into out; with one chunk the
+first kernel writes out itself. The wrapper never reads `lengths` on the
+host: no sync per call.
+
+It counts its calls in `flash_decode.launches` (one per call, whatever the
+number of device kernels), per route in `flash_decode.launches_by_route`,
+and the device kernels that the library reports it launched in
+`flash_decode.launches_by_kernel` ("split" once a call, "combine" when the
+call had more than one chunk).
+
+Contract (kernels and plain version alike): 1 <= lengths[b] <= S. A row
+with lengths[b] == 0 has nothing to attend to and gives NaN; the wrapper
+does not check the values, which would cost a device-to-host sync per call.
 """
 from __future__ import annotations
 
@@ -22,11 +38,20 @@ import torch
 from . import ref
 from .build import load_library
 
-__all__ = ["flash_decode", "reset_launches", "LIBRARY", "MAX_HEAD_DIM"]
+__all__ = ["flash_decode", "reset_launches", "split_plan", "route",
+           "LIBRARY", "MAX_HEAD_DIM", "ROUTES", "KERNELS"]
 
 LIBRARY = "flash_decode"
 MAX_HEAD_DIM = 256                      # kMaxHeadDim in the CUDA source
+HEADS_PER_CTA = 16                      # kHeads in the CUDA source
+ROUTES = ("tensor_core", "cuda_core")
+KERNELS = ("split", "combine")          # in the order a call launches them
 _DTYPES = (torch.float32, torch.bfloat16)
+# split_plan: aim at this many CTAs (several waves of 2 per SM on 132 SMs
+# when half of them are past their row's length), with chunks a power of
+# two between the two bounds
+_TARGET_CTAS = 2048
+_MIN_CHUNK, _MAX_CHUNK = 128, 2048
 
 
 @functools.cache
@@ -38,13 +63,48 @@ def _lib() -> ctypes.CDLL:
     lib.cemr_flash_decode_max_head_dim.restype = i
     lib.cemr_error_string.argtypes = [i]
     lib.cemr_error_string.restype = ctypes.c_char_p
-    lib.cemr_flash_decode.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                      ctypes.c_float, i, i, p]
+    lib.cemr_flash_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                      i, ctypes.c_float, i, i, i, p,
+                                      ctypes.POINTER(i)]
     lib.cemr_flash_decode.restype = i
-    if lib.cemr_flash_decode_max_head_dim() != MAX_HEAD_DIM:
+    lib.cemr_flash_decode_max_heads_per_cta.argtypes = []
+    lib.cemr_flash_decode_max_heads_per_cta.restype = i
+    lib.cemr_flash_decode_smem_bytes.argtypes = [i, i, i, i]
+    lib.cemr_flash_decode_smem_bytes.restype = i
+    if lib.cemr_flash_decode_max_head_dim() != MAX_HEAD_DIM \
+            or lib.cemr_flash_decode_max_heads_per_cta() != HEADS_PER_CTA:
         raise RuntimeError("flash_decode library and wrapper disagree on "
-                           "the largest head dim")
+                           "the largest head dim or the heads per CTA")
     return lib
+
+
+def split_plan(b: int, h: int, hkv: int, s: int, d: int
+               ) -> tuple[int, int, tuple | None]:
+    """How the kernels split the S positions, from the shapes alone:
+    (chunk, n_chunks, workspace shape). The chunk is the power of two
+    between 128 and 2048 nearest below the positions per CTA that gives
+    about 2,048 CTAs of (KV head, head block, chunk, b). One chunk covers
+    S whole (chunk = S) when S fits in one; then no workspace is needed
+    (None), else it is (B, H, n_chunks, D + 2) in fp32: each chunk's
+    per-head acc[D], m and l."""
+    n_hblk = -(-(h // hkv) // HEADS_PER_CTA)
+    per_cta = max(b * hkv * n_hblk * s // _TARGET_CTAS, 1)
+    chunk = min(max(1 << (per_cta.bit_length() - 1), _MIN_CHUNK),
+                _MAX_CHUNK)
+    if chunk >= s:
+        return s, 1, None
+    n_chunks = -(-s // chunk)
+    return chunk, n_chunks, (b, h, n_chunks, d + 2)
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel route for these tensors, decided before the launch:
+    "tensor_core" for a bfloat16 q over a bfloat16 cache with D a multiple
+    of 16 and the cache 16-byte aligned, else "cuda_core"."""
+    if q.dtype == k.dtype == torch.bfloat16 and q.shape[-1] % 16 == 0 \
+            and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def _check(q, k, v, lengths) -> None:
@@ -97,26 +157,37 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _lib()
     b, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
+    chunk, n_chunks, ws_shape = split_plan(b, h, hkv, s, d)
+    way = route(q, k, v)
     out = torch.empty_like(q)
+    ws = (torch.empty(ws_shape, dtype=torch.float32, device=dev)
+          if ws_shape is not None else None)
+    n_launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.cemr_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             lengths.data_ptr() if lengths is not None else None,
-            out.data_ptr(), b, h, hkv, s, d, _scale(d),
+            out.data_ptr(), ws.data_ptr() if ws is not None else None,
+            b, h, hkv, s, d, chunk, n_chunks, _scale(d),
             int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-            stream)
+            int(way == "tensor_core"), stream, ctypes.byref(n_launched))
     if code != 0:
         msg = lib.cemr_error_string(code).decode()
         raise RuntimeError(f"flash_decode launch failed: CUDA error {code} "
                            f"({msg})")
     flash_decode.launches += 1
+    flash_decode.launches_by_route[way] += 1
+    for name in KERNELS[:n_launched.value]:
+        flash_decode.launches_by_kernel[name] += 1
     return out
 
 
 def reset_launches() -> None:
-    """Set the wrapper's launch count to 0."""
+    """Set the wrapper's launch counts to 0."""
     flash_decode.launches = 0
+    flash_decode.launches_by_route = dict.fromkeys(ROUTES, 0)
+    flash_decode.launches_by_kernel = dict.fromkeys(KERNELS, 0)
 
 
 reset_launches()

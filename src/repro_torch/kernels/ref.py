@@ -1,7 +1,7 @@
-"""Plain torch versions of the bitmap kernels (correctness ground truth).
+"""Plain torch versions of the kernels (correctness ground truth).
 
-The kernel wrappers in `bitmap_intersect.py` run these for CPU tensors, and
-`chip_smoke.py` holds the CUDA kernels against them on the card. Gather
+The kernel wrappers run these for CPU tensors, and `chip_smoke.py` holds
+the CUDA kernels against them on the card. Gather
 indices are taken as `jnp` indexing takes them — a negative index counts
 from the end, and the result is clamped into the table: the engine never
 produces an out-of-range index, but neither the plain versions nor the
@@ -14,7 +14,7 @@ import torch
 from ..core.bitops import row_popcount
 
 __all__ = ["bitmap_intersect_ref", "fused_expand_intersect_ref",
-           "flash_decode_ref", "leaf_count_ref"]
+           "flash_decode_ref", "flash_decode_split_ref", "leaf_count_ref"]
 
 
 def _jnp_index(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -71,6 +71,42 @@ def flash_decode_ref(q, k, v, lengths=None):
         scores = scores.masked_fill(~mask, float("-inf"))
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bngs,bsnd->bngd", p, v.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def flash_decode_split_ref(q, k, v, lengths=None, *, chunk: int):
+    """`flash_decode_ref` computed as the split kernels compute it, in
+    float32: each chunk of `chunk` positions gives per query head its max
+    score m, its sum l of exp(s - m) and acc = sum exp(s - m) v (an empty
+    chunk m = -inf, l = 0, acc = 0); the chunks then merge with the
+    log-sum-exp rescale exp(m_c - M). The plain version of the combine
+    kernel; tests use it, the main path does not. A row with
+    lengths[b] == 0 gives 0/0 = NaN."""
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32))
+    qg = q.reshape(b, hkv, group, d).float()
+    lens = (torch.full((b,), s, device=k.device) if lengths is None
+            else lengths.long().clamp(0, s))
+    ms, ls, accs = [], [], []
+    for c0 in range(0, s, chunk):
+        kc, vc = k[:, c0:c0 + chunk].float(), v[:, c0:c0 + chunk].float()
+        sc = torch.einsum("bngd,bsnd->bngs", qg, kc) * scale
+        pos = torch.arange(c0, c0 + kc.shape[1], device=k.device)
+        valid = (pos[None, :] < lens[:, None])[:, None, None, :]
+        sc = sc.masked_fill(~valid, float("-inf"))
+        m = sc.amax(-1)                                    # (b, n, g)
+        e = torch.exp(sc - torch.where(torch.isinf(m), 0.0, m)[..., None])
+        ms.append(m)
+        ls.append(e.sum(-1))
+        accs.append(torch.einsum("bngs,bsnd->bngd", e, vc))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    m_all = m.amax(0)
+    w = torch.where(torch.isinf(m), 0.0,
+                    torch.exp(m - torch.where(torch.isinf(m_all), 0.0,
+                                              m_all)))
+    out = (w[..., None] * acc).sum(0) / (w * l).sum(0)[..., None]
     return out.reshape(b, h, d).to(q.dtype)
 
 

@@ -1,8 +1,9 @@
 """The port's decode attention on the CPU against the reference: the plain
-torch version against `repro.kernels.ref.flash_decode_ref` and against the
-Pallas kernel `flash_decode_pallas` in interpret mode; the wrapper's
-dispatch and checks. The CUDA kernel itself runs only on the card (the
-`cuda` marker).
+torch version and the split-and-combine plain version (the combine
+kernel's) against `repro.kernels.ref.flash_decode_ref` and against the
+Pallas kernel `flash_decode_pallas` in interpret mode; the wrapper's split
+plan, route, dispatch and checks. The CUDA kernels themselves run only on
+the card (the `cuda` marker).
 
 Tolerances: float32 outputs 1e-5 (atol and rtol: both sides accumulate in
 float32, in another order); bfloat16 outputs 2e-2 (both sides compute in
@@ -117,6 +118,123 @@ def test_ops_dispatch_and_launch_count_on_the_cpu():
         got = ops.decode_attention(q, k, v, lengths, use_kernel=use_kernel)
         assert torch.equal(got, want)
     assert fd.flash_decode.launches == 0      # the CPU launches no kernel
+    assert fd.flash_decode.launches_by_route == dict.fromkeys(fd.ROUTES, 0)
+    assert fd.flash_decode.launches_by_kernel == dict.fromkeys(fd.KERNELS, 0)
+
+
+def _boundary_lengths(chunk, s):
+    """Lengths at and around the chunk boundaries, clamped into [1, S]:
+    1, chunk - 1, chunk, chunk + 1, 2 * chunk and S."""
+    lens = [1, chunk - 1, chunk, chunk + 1, 2 * chunk, s]
+    return np.clip(np.asarray(lens), 1, s).astype(np.int32)
+
+
+SPLIT_S = 300
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 16, 128, SPLIT_S + 5],
+                         ids=lambda c: f"chunk{c}")
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2), (12, 2), (16, 2), (32, 1)],
+                         ids=lambda x: str(x))
+def test_split_version_matches_reference_and_pallas(h, hkv, chunk):
+    """The split-and-combine plain version over chunks of 1, 7, 16, 128
+    and more than S positions, G in {1, 2, 6, 8, 32}, lengths at the chunk
+    boundaries: against the port's plain version, the JAX oracle (with the
+    lengths and with None) and the Pallas kernel in interpret mode."""
+    (q, k, v, _), (jq, jk, jv, _) = _case(6, h, hkv, SPLIT_S, 16,
+                                          torch.float32, torch.float32,
+                                          seed=h * 10 + hkv)
+    lens = _boundary_lengths(chunk, SPLIT_S)
+    lengths, jl = torch.from_numpy(lens), jnp.asarray(lens)
+    got = ref.flash_decode_split_ref(q, k, v, lengths, chunk=chunk)
+    assert got.dtype == torch.float32 and got.shape == (6, h, 16)
+    want, want_full = jref_ragged_and_full(jq, jk, jv, jl)
+    _close(got, want, torch.float32)
+    _close(got, ref.flash_decode_ref(q, k, v, lengths), torch.float32)
+    _close(ref.flash_decode_split_ref(q, k, v, chunk=chunk), want_full,
+           torch.float32)
+    _close(got, flash_decode_pallas(jq, jk, jv, jl, interpret=True),
+           torch.float32)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)],
+    ids=["bf16-bf16", "bf16-f32"])
+def test_split_version_in_bf16_matches_reference(q_dtype, kv_dtype):
+    """The two serving dtype pairs: the split version rounds once, to q's
+    dtype, as the oracle does."""
+    (q, k, v, _), (jq, jk, jv, _) = _case(6, 12, 2, SPLIT_S, 64, q_dtype,
+                                          kv_dtype, seed=11)
+    lens = _boundary_lengths(16, SPLIT_S)
+    got = ref.flash_decode_split_ref(q, k, v, torch.from_numpy(lens),
+                                     chunk=16)
+    assert got.dtype == q_dtype
+    _close(got, jref_ragged_and_full(jq, jk, jv, jnp.asarray(lens))[0],
+           q_dtype)
+
+
+def test_split_version_gives_nan_for_an_empty_row():
+    """lengths[b] == 0: every chunk is empty, the merge is 0/0 = NaN, as
+    the oracle's all-masked softmax gives; the other rows are unharmed."""
+    (q, k, v, _), (jq, jk, jv, _) = _case(2, 4, 2, 9, 16, torch.float32,
+                                          torch.float32, seed=3)
+    lengths = torch.tensor([0, 9], dtype=torch.int32)
+    want = np.asarray(jref.flash_decode_ref(jq, jk, jv,
+                                            jnp.asarray([0, 9], jnp.int32)))
+    for chunk in (1, 4, 9):
+        out = ref.flash_decode_split_ref(q, k, v, lengths, chunk=chunk)
+        assert torch.isnan(out[0]).all()
+        _close(out[1], want[1], torch.float32)
+
+
+@pytest.mark.parametrize("shape", [
+    (32, 12, 2, 32_772, 128), (4, 12, 2, 24, 128), (3, 12, 2, 32_768, 128),
+    (1, 4, 2, 1, 16), (3, 4, 4, 200, 64), (2, 32, 1, 4096, 128),
+    (1, 64, 2, 1 << 20, 256)], ids=str)
+def test_split_plan_covers_s_and_sizes_the_workspace(shape):
+    """The chunks cover S exactly once (the last one may be short), the
+    workspace is (B, H, n_chunks, D + 2) exactly when there is more than
+    one chunk, and a split chunk is a power of two in [128, 2048]."""
+    b, h, hkv, s, d = shape
+    chunk, n_chunks, ws = fd.split_plan(b, h, hkv, s, d)
+    assert chunk * (n_chunks - 1) < s <= chunk * n_chunks
+    if n_chunks == 1:
+        assert ws is None and chunk == s
+    else:
+        assert ws == (b, h, n_chunks, d + 2)
+        assert chunk & (chunk - 1) == 0 and 128 <= chunk <= 2048
+
+
+def test_split_plan_at_the_paths_shapes():
+    """decode_32k (one layer at batch 32): chunks of 1,024 positions, 33
+    of them, 2,112 CTAs and a 6.6 MB workspace; the serve loop's
+    24-position cache: one chunk, no workspace. The plan takes shapes
+    only, so the same shapes always give the same plan whatever the
+    lengths."""
+    assert fd.split_plan(32, 12, 2, 32_772, 128) == (1024, 33,
+                                                     (32, 12, 33, 130))
+    assert 32 * 12 * 33 * 130 * 4 == 6_589_440
+    assert fd.split_plan(4, 12, 2, 24, 128) == (24, 1, None)
+
+
+def test_route_is_decided_by_dtypes_shape_and_alignment():
+    """The tensor-core route takes bfloat16 q and cache with D a multiple
+    of 16 and a 16-byte aligned cache; everything else takes the CUDA
+    cores."""
+    def tensors(q_dtype, kv_dtype, d, offset=0):
+        q = torch.zeros(2, 4, d, dtype=q_dtype)
+        flat = torch.zeros(2 * 8 * 2 * d + offset, dtype=kv_dtype)
+        k = flat[offset:].view(2, 8, 2, d)
+        return q, k, k
+    bf, f32 = torch.bfloat16, torch.float32
+    assert fd.route(*tensors(bf, bf, 128)) == "tensor_core"
+    assert fd.route(*tensors(bf, bf, 48)) == "tensor_core"
+    assert fd.route(*tensors(bf, bf, 40)) == "cuda_core"
+    assert fd.route(*tensors(bf, f32, 128)) == "cuda_core"
+    assert fd.route(*tensors(f32, bf, 128)) == "cuda_core"
+    assert fd.route(*tensors(f32, f32, 128)) == "cuda_core"
+    assert fd.route(*tensors(bf, bf, 128, offset=1)) == "cuda_core"
+    assert set(fd.ROUTES) == {"tensor_core", "cuda_core"}
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -159,17 +277,29 @@ def test_library_is_named_by_its_source():
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16],
                          ids=["kv32", "kv16"])
 def test_cuda_kernel_matches_plain_version(q_dtype, kv_dtype):
-    """The CUDA kernel against its plain version on the card."""
+    """The CUDA kernels against their plain version on the card, G = 8 and
+    G = 32 included, and with lengths at the chunk boundaries of the
+    split the wrapper picks; each call launches the split kernel, and the
+    combine when the plan has more than one chunk."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (runs on the H100 via chip_smoke.py)")
     dev = torch.device("cuda")
     for b, h, hkv, s, d in [(1, 4, 2, 1, 16), (3, 12, 2, 200, 64),
-                            (3, 4, 4, 17, 128), (2, 12, 2, 4096, 128)]:
+                            (3, 4, 4, 17, 128), (2, 12, 2, 4096, 128),
+                            (2, 16, 2, 1000, 128), (2, 32, 1, 600, 64)]:
         (q, k, v, lengths), _ = _case(b, h, hkv, s, d, q_dtype, kv_dtype,
                                       seed=s + d)
         q, k, v, lengths = (x.to(dev) for x in (q, k, v, lengths))
-        for lens in (lengths, None):
+        chunk, n_chunks, _ = fd.split_plan(b, h, hkv, s, d)
+        edges = _boundary_lengths(chunk, s)
+        # every boundary length on some row: b rows at a time
+        edge_rows = [torch.from_numpy(np.resize(np.roll(edges, -i), b))
+                     .to(dev) for i in range(0, len(edges), b)]
+        for lens in (lengths, None, *edge_rows):
+            fd.reset_launches()
             got = fd.flash_decode(q, k, v, lens)
+            assert fd.flash_decode.launches_by_kernel == {
+                "split": 1, "combine": int(n_chunks > 1)}
             want = ref.flash_decode_ref(q, k, v, lens)
             torch.cuda.synchronize()
             tol = TOL[q_dtype]
