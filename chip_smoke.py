@@ -8,13 +8,21 @@ Phases, in order; any failure exits non-zero:
   2. build  — build the CUDA kernels from `src/repro_torch/kernels/csrc/`
               with nvcc (sm_90a), one nvcc per source, all started
               together, and print the build times; beside them a separate
-              compile of flash_decode.cu with `-Xptxas -v` (the built
-              library's flags are unchanged) prints each flash_decode
-              kernel's registers, spills and shared memory;
+              compile of each source with `-Xptxas -v` (the built
+              libraries' flags are unchanged) prints each kernel's
+              registers, spills and shared memory;
   3. kernels — hold each kernel against its plain torch version on the card.
-              The bitmap kernels bit for bit: k in 1..4 tables, ragged
-              widths, all-zero and all-one rows, T = 256, and for the fused
-              kernel K0 = 0 and slots through both kinds of indirection.
+              The bitmap kernels bit for bit. The old contracts
+              (bitmap_intersect, fused_expand_intersect): k in 1..4 tables,
+              ragged widths, all-zero and all-one rows, T = 256, and for
+              the fused entry K0 = 0 and slots through both kinds of
+              indirection. The new entry points (tile_intersect,
+              expand_select, expand_intersect) over the grid of
+              `check_new_kernels`: k 1..4, K0 0, 1, 4, W 1, 33, 82, 246,
+              T_in 1, 37, 256, 1000 and 10,000 against T_out = 256,
+              starts at 0, mid, total - 1, total and past it, empty,
+              sparse, dense and all-one frontiers, negative index entries
+              and same-label clears on the bitpos column.
               flash_decode over B in {1, 3}, (H, Hkv) in {(4, 2), (12, 2),
               (4, 4), (16, 2), (32, 1)}, S in {1, 17, 128, 200}, D in
               {16, 64, 128}, plus the serve loop's (4, 12, 2, 24, 128),
@@ -30,11 +38,15 @@ Phases, in order; any failure exits non-zero:
               intersect="auto" and "fused", each count held against the
               port's own `cemr_match` (numpy, CPU). Each route's launch
               counts are set to 0 just before its runs and read just
-              after: bitmap_intersect must launch on "auto" and
-              fused_expand_intersect on "fused". The two routes'
-              VectorStats must be equal, and the scale-1.0 dblp supersteps
-              and CER hits equal the JAX reference's (those counts stop
-              at the limit);
+              after, beside the path's own count of boundary expansions,
+              fused boundaries and pair-extend computes (`PathCalls`):
+              each new kernel must launch once per boundary or extend it
+              covers (expand_select and tile_intersect on "auto",
+              expand_intersect and tile_intersect on "fused"), the old
+              entry points never, and the torch `bitops.expand_select`
+              never on the card. The two routes' VectorStats must be
+              equal, and the scale-1.0 dblp supersteps and CER hits equal
+              the JAX reference's (those counts stop at the limit);
   5. LM path — qwen2-1.5b decode serving (`repro_torch.launch.serve`):
               the reduced model's four float32 steps on the card against
               the same steps on the CPU (logits within 1e-4, the same
@@ -61,8 +73,12 @@ Phases, in order; any failure exits non-zero:
   6. timing — each kernel's median device time at its path's shapes beside
               its plain version's, its bound and, for flash_decode, the
               time of `scaled_dot_product_attention`, the achieved bytes/s
-              and the share of the bound; and the launch floor, the median
-              time of an empty `torch.cuda._sleep(0)` kernel back to back;
+              and the share of the bound. The bitmap kernels at the dblp
+              size-8 plan's widest extend and at eu2005's widest shape
+              (synthetic 6,138 x 246 tables, k = 2), warm and with the L2
+              flushed before each call. The launch floor: an empty
+              `torch.cuda._sleep(0)` kernel back to back, and alone after
+              an L2 flush;
   7. summary — the kernels line, the card, one JSON line of per-kernel
               numbers, and last the line
               {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -96,9 +112,10 @@ WORKLOADS = (("dblp", 1.0, 8), ("dblp", 1.0, 16), ("human", 1.0, 8),
 # options). They hold the kernels' bits where the clipped count cannot.
 REFERENCE_STATS = {("dblp", 1.0, 8): {"supersteps": 35},
                    ("dblp", 1.0, 16): {"supersteps": 37, "cer_hits": 6_927}}
-# The route each kernel belongs to: its launch count is read on that route
-KERNEL_ROUTE = {"bitmap_intersect": "auto",
-                "fused_expand_intersect": "fused"}
+# The route whose launch count each bitmap kernel reports (tile_intersect
+# runs on both routes)
+KERNEL_ROUTE = {"tile_intersect": "auto", "expand_select": "auto",
+                "expand_intersect": "fused"}
 
 LM_ARCH = "qwen2-1.5b"
 SERVE_BATCH, SERVE_TOKENS = 4, 16      # the reference launcher's defaults
@@ -222,6 +239,83 @@ def check_kernels(bi, ref, dev) -> dict:
     return errs
 
 
+def frontier_bits(gen, t_in, w_in, fill) -> np.ndarray:
+    """A (t_in, w_in) uint32 frontier bitmap: empty, sparse (about 1 bit in
+    64, half the rows empty), dense (random words) or all ones."""
+    if fill == "empty":
+        return np.zeros((t_in, w_in), np.uint32)
+    if fill == "ones":
+        return np.full((t_in, w_in), 0xFFFFFFFF, np.uint32)
+    if fill == "dense":
+        return gen.integers(0, 2 ** 32, (t_in, w_in), dtype=np.uint32)
+    bits = (gen.random((t_in, w_in, 32)) < 1 / 64).astype(np.uint64)
+    bits[gen.random(t_in) < 0.5] = 0
+    return (bits << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+
+
+def check_new_kernels(bi, ref, dev) -> tuple[dict, int]:
+    """tile_intersect, expand_select and expand_intersect against their
+    plain versions, bit for bit: k in 1..4 tables, K0 in {0, 1, 4} parent
+    columns (entries from -5 on: negative keys count from the table's end,
+    negative clear values clear nothing), W in {1, 33, 82, 246},
+    T_in in {1, 37, 256, 1000} against T_out = 256, plus T_in = 10,000
+    (its scan leaves shared memory for global scratch), start at 0, the
+    middle, total - 1, total and past it, empty, sparse, dense and all-one
+    frontiers, and same-label clears on the bitpos column (slot K0) and on
+    parent columns. Returns the largest difference per kernel and the
+    number of cases."""
+    gen = np.random.default_rng(5)
+    errs = {"tile_intersect": 0, "expand_select": 0, "expand_intersect": 0}
+    n = 0
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+
+    def held(name, got, want, where):
+        nonlocal n
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        errs[name] = max(errs[name], err)
+        n += 1
+        if err:
+            raise SystemExit(f"{name} disagrees: {where} max_abs_err={err}")
+
+    grid = [(k, k0, w, t_in) for k in (1, 2, 3, 4) for k0 in (0, 1, 4)
+            for w in (1, 33, 82, 246) for t_in in (1, 37, 256, 1000)]
+    grid += [(k, k0, w, 10_000) for k in (1, 2) for k0 in (0, 4)
+             for w in (1, 33)]
+    for k, k0, w, t_in in grid:
+        tabs = [on_card(gen.integers(0, 2 ** 32, (int(gen.integers(1, 300)),
+                                                  w), dtype=np.uint32))
+                for _ in range(k)]
+        idx = on_card(gen.integers(-5, 400, (t_in, k0)).astype(np.int32))
+        slots = [int(s) for s in gen.integers(0, k0 + 1, k)]
+        clears = [k0] + [int(s) for s in gen.integers(0, k0 + 1, 2)]
+        if k0:
+            t_slots = [min(s, k0 - 1) for s in slots]
+            t_clears = [0, k0 - 1]
+            held("tile_intersect",
+                 bi.tile_intersect(tabs, idx, t_slots, t_clears),
+                 ref.tile_intersect_ref(tabs, idx, t_slots, t_clears),
+                 f"k={k} K={k0} W={w} T={t_in}")
+        for fill in ("empty", "sparse", "dense", "ones"):
+            bits = frontier_bits(gen, t_in, w, fill)
+            r = on_card(bits)
+            total = int(np.unpackbits(bits.view(np.uint8)).sum())
+            for start in sorted({0, total // 2, max(total - 1, 0), total,
+                                 total + 7}):
+                where = (f"k={k} K0={k0} W={w} T_in={t_in} {fill} "
+                         f"start={start} total={total}")
+                args = (r, start, TILE_ROWS, idx)
+                held("expand_select", bi.expand_select(*args),
+                     ref.expand_select_ref(*args), where)
+                held("expand_intersect",
+                     bi.expand_intersect(*args, tabs, slots, clears),
+                     ref.expand_intersect_ref(*args, tabs, slots, clears),
+                     where)
+    return errs, n
+
+
 def prepare(api, cemr_match) -> list:
     """Build the datasets, compile the queries and count each with the
     port's `cemr_match` (numpy, host). Returns one workload per query."""
@@ -254,30 +348,120 @@ def prepare(api, cemr_match) -> list:
     return work
 
 
-def drive(bi, work, intersect: str) -> tuple[list, dict]:
+class PathCalls:
+    """Counts, while active, what the main path asks of the bitmap kernels,
+    independently of the wrappers' launch counts: the engine's boundary
+    expansions (`expand` closures), fused boundaries (`fused` closures)
+    and pair-extend computes (`compute_r` closures of extends with
+    backward pairs), and every call of the torch `bitops.expand_select` on
+    a CUDA tensor. Engines must be built while it is active."""
+
+    def __init__(self, engine_mod, bitops_mod):
+        self.eng_cls, self.bitops = engine_mod.VectorEngine, bitops_mod
+        self.calls = {"expand": 0, "fused": 0, "pair_compute": 0,
+                      "torch_expand_select_on_card": 0}
+
+    def _counted(self, key, fn):
+        def wrapped(*args, **kwargs):
+            self.calls[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    def __enter__(self):
+        cls, counted = self.eng_cls, self._counted
+        self.saved = {name: getattr(cls, name) for name in
+                      ("_make_expand", "_make_expand_fused",
+                       "_make_compute_parts")}
+        saved = self.saved
+        self.saved_select = self.bitops.expand_select
+
+        def make_expand(eng, si):
+            return counted("expand", saved["_make_expand"](eng, si))
+
+        def make_fused(eng, si, sj):
+            fn = saved["_make_expand_fused"](eng, si, sj)
+            return None if fn is None else counted("fused", fn)
+
+        def make_compute(eng, si):
+            compute_r, con = saved["_make_compute_parts"](eng, si)
+            stage = eng._stages[si]
+            if stage[0] == "extend" and stage[1].level > 0 \
+                    and stage[1].bk_pairs:
+                compute_r = counted("pair_compute", compute_r)
+            return compute_r, con
+
+        def torch_select(bm, *args, **kwargs):
+            if bm.is_cuda:
+                self.calls["torch_expand_select_on_card"] += 1
+            return self.saved_select(bm, *args, **kwargs)
+
+        cls._make_expand = make_expand
+        cls._make_expand_fused = make_fused
+        cls._make_compute_parts = make_compute
+        self.bitops.expand_select = torch_select
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.eng_cls, name, fn)
+        self.bitops.expand_select = self.saved_select
+
+
+def drive(bi, engine_mod, bitops_mod, work, intersect: str):
     """One intersect route of the main path: every workload through
     Matcher.count, with the launch counts set to 0 just before and read
-    just after. Returns the per-run lines (with the full VectorStats) and
-    the route's launch counts."""
+    just after, and the path's kernel work counted by `PathCalls` (the
+    route's engines are built here). Returns the per-run lines (with the
+    full VectorStats), the route's launch counts and its path calls."""
     runs = []
-    bi.reset_launches()
-    for w in work:
-        t0 = time.perf_counter()
-        # engine="vector": human's size-8 candidate space is small
-        # enough that engine="auto" would pick the ref engine
-        out = w["matcher"].count(w["query"], engine="vector",
-                                 intersect=intersect, limit=LIMIT)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        runs.append({"dataset": w["dataset"], "scale": w["scale"],
-                     "query_size": w["query_size"],
-                     "intersect": intersect, "count": out.count,
-                     "cemr_match_count": w["ref"], "wall_s": wall,
-                     "compile_s": out.compile_s, "elapsed_s": out.elapsed_s,
-                     "stats": dataclasses.asdict(out.stats)})
-    launches = {"bitmap_intersect": bi.bitmap_intersect.launches,
-                "fused_expand_intersect": bi.fused_expand_intersect.launches}
-    return runs, launches
+    with PathCalls(engine_mod, bitops_mod) as path:
+        bi.reset_launches()
+        for w in work:
+            t0 = time.perf_counter()
+            # engine="vector": human's size-8 candidate space is small
+            # enough that engine="auto" would pick the ref engine
+            out = w["matcher"].count(w["query"], engine="vector",
+                                     intersect=intersect, limit=LIMIT)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs.append({"dataset": w["dataset"], "scale": w["scale"],
+                         "query_size": w["query_size"],
+                         "intersect": intersect, "count": out.count,
+                         "cemr_match_count": w["ref"], "wall_s": wall,
+                         "compile_s": out.compile_s,
+                         "elapsed_s": out.elapsed_s,
+                         "stats": dataclasses.asdict(out.stats)})
+        launches = {fn.__name__: fn.launches for fn in bi.WRAPPERS}
+    return runs, launches, dict(path.calls)
+
+
+def check_launches(route: str, launches: dict, calls: dict) -> None:
+    """Each kernel of the route launched once per boundary or extend it
+    covers, and the torch expand_select never ran on the card: on "auto"
+    expand_select once per boundary expansion; on "fused" expand_intersect
+    once per fused boundary and expand_select once per other boundary; on
+    both tile_intersect once per pair extend computed (the fused
+    boundary's extend is computed by expand_intersect); the old entry
+    points never."""
+    want = {"tile_intersect": calls["pair_compute"],
+            "expand_select": calls["expand"],
+            "expand_intersect": calls["fused"],
+            "bitmap_intersect": 0, "fused_expand_intersect": 0}
+    if launches != want:
+        raise SystemExit(f"{route}: launches {launches}, expected one per "
+                         f"boundary or extend covered: {want} "
+                         f"(path calls {calls})")
+    needed = (("tile_intersect", "expand_select") if route == "auto"
+              else ("tile_intersect", "expand_intersect"))
+    for name in needed:
+        if launches[name] <= 0:
+            raise SystemExit(f"{name} never launched on the {route} route")
+    if route == "auto" and calls["fused"]:
+        raise SystemExit(f"auto route fused {calls['fused']} boundaries")
+    if calls["torch_expand_select_on_card"]:
+        raise SystemExit(f"{route}: the torch expand_select ran "
+                         f"{calls['torch_expand_select_on_card']} times on "
+                         f"the card")
 
 
 def check_runs(by_route: dict) -> None:
@@ -322,8 +506,8 @@ def build_all(build, names) -> dict:
         return {name: f.result() for name, f in futures.items()}
 
 
-def ptxas_report(build, fd) -> list:
-    """Compile flash_decode.cu once more with `-Xptxas -v` (into a
+def ptxas_report(build, name) -> list:
+    """Compile `csrc/<name>.cu` once more with `-Xptxas -v` (into a
     temporary file; the built library keeps build.NVCC_FLAGS) and return
     one line per kernel: registers, spill stores/loads, static shared
     memory."""
@@ -332,8 +516,7 @@ def ptxas_report(build, fd) -> list:
     build.build_dir().mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.build_dir()) as tmp:
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-               str(Path(tmp) / "ptxas.so"),
-               str(build.CSRC / f"{fd.LIBRARY}.cu")]
+               str(Path(tmp) / "ptxas.so"), str(build.CSRC / f"{name}.cu")]
         proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise SystemExit(f"nvcc -Xptxas -v failed:\n{proc.stderr}")
@@ -554,8 +737,7 @@ def drive_serve(serve, bi, fd, kops, ref, bundle, model) -> dict:
             "tokens_per_s": res["tokens_per_s"], "launches": launches,
             "launches_by_route": by_route, "launches_by_kernel": by_kernel,
             "held_max_abs_err": held["max_abs_err"],
-            "bitmap_launches": bi.bitmap_intersect.launches
-            + bi.fused_expand_intersect.launches,
+            "bitmap_launches": sum(fn.launches for fn in bi.WRAPPERS),
             "sample": toks[:, 0].tolist()}
 
 
@@ -729,67 +911,167 @@ def time_flash_decode(fd, ref, dev, d32k, launches, errs) -> dict:
                       "cache": "bfloat16"}}
 
 
-def time_kernels(bi, ref, cq, dev, launches, errs, floor_ms) -> list:
-    """Each kernel at the main path's shapes: the dblp size-8 plan's widest
-    extend (most gathered words), T = tile_rows, the plan's own tables;
-    beside the launch floor `floor_ms`."""
-    from repro_torch.core.engine import upload_plan
-    plan = cq.plan
-    tables, _ = upload_plan(plan, dev)
-    op = max((o for o in plan.ops if o.bk_pairs),
-             key=lambda o: (len(o.bk_pairs) * o.n_words, o.level))
-    tabs = [tables[f"{u}:{op.vertex}"] for (_, u) in op.bk_pairs]
-    slots = [s for (s, _) in op.bk_pairs]
-    k, w, t = len(tabs), op.n_words, TILE_ROWS
-    k0 = max(slots)                       # parent width; slot k0 = bitpos
+def flushed_ms(fn, flush, *, reps: int = 20) -> float:
+    """Device time of one call that finds the L2 cache cold: a write of
+    `flush` (twice the 50 MB L2) before each call, then a sleep kernel that
+    holds the stream while the host queues the call, and CUDA events
+    around the call alone; the median over `reps`."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        flush.fill_(1)
+        torch.cuda._sleep(200_000)       # time for the host to queue fn
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        pairs.append((start, stop))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def host_us(fn, *, calls: int = 200) -> float:
+    """Host time of one call in microseconds: `calls` back-to-back calls
+    queued behind a sleep kernel (so the launch queue never fills and no
+    call waits on the device), timed on the host clock, over the count."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)           # ~100 ms at H100 clocks
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def bitmap_shapes(plan, tables, dev) -> dict:
+    """The two shapes the bitmap kernels are timed at, each as (tables,
+    slots, frontier r, parent idx): the dblp size-8 plan's widest extend
+    (most gathered words; its own tables; the frontier as wide as the
+    extend before it), and synthetic tables of eu2005's widest extend
+    (k = 2 tables of 6,138 x 246 words, a 246-word frontier). Frontiers
+    are sparse (about 1 bit in 64, half the rows empty), T_in = T_out =
+    tile_rows, K0 = 4 parent columns at eu2005."""
     gen = np.random.default_rng(1)
-    s_min = min(x.shape[0] for x in tabs)
-    idxs = torch.from_numpy(np.stack(
-        [gen.integers(0, x.shape[0], t) for x in tabs], 1
-    ).astype(np.int32)).to(dev)
-    idx = torch.from_numpy(gen.integers(0, s_min, size=(t, max(k0, 1)))
-                           .astype(np.int32)[:, :k0].copy()).to(dev)
-    rows = torch.from_numpy(gen.integers(0, t, t).astype(np.int32)).to(dev)
-    bitpos = torch.from_numpy(gen.integers(0, s_min, t)
-                              .astype(np.int32)).to(dev)
-    # bytes the function must move: the k gathered rows, R and pop written,
-    # plus the keys — k indices per row, or for the fused kernel rows,
-    # bitpos and one parent index per slot below K0
-    out_bytes = t * k * w * 4 + t * w * 4 + t * 4
-    io_bytes = out_bytes + t * k * 4
-    fused_bytes = out_bytes + t * 8 + t * sum(s < k0 for s in slots) * 4
-    specs = [
-        ("bitmap_intersect", io_bytes,
-         lambda: bi.bitmap_intersect(tabs, idxs),
-         lambda: ref.bitmap_intersect_ref(tabs, idxs)),
-        ("fused_expand_intersect", fused_bytes,
-         lambda: bi.fused_expand_intersect(tabs, idx, rows, bitpos, slots),
-         lambda: ref.fused_expand_intersect_ref(tabs, idx, rows, bitpos,
-                                                slots=slots)),
-    ]
+    t = TILE_ROWS
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+
+    ops = list(plan.ops)
+    i = max(range(len(ops)), key=lambda j: (len(ops[j].bk_pairs)
+                                             * ops[j].n_words, ops[j].level)
+            if ops[j].bk_pairs else (-1, 0))
+    op = ops[i]
+    w_in = ops[i - 1].n_words if i else plan.root_words
+    d_tabs = [tables[f"{u}:{op.vertex}"] for (_, u) in op.bk_pairs]
+    d_slots = [s for (s, _) in op.bk_pairs]
+    k0 = max(d_slots)                     # parent width; slot k0 = bitpos
+    s_min = min(x.shape[0] for x in d_tabs)
+    e_tabs = [on_card(gen.integers(0, 2 ** 32, (6_138, 246), dtype=np.uint32))
+              for _ in range(2)]
+    return {
+        "dblp": (d_tabs, d_slots,
+                 on_card(frontier_bits(gen, t, w_in, "sparse")),
+                 on_card(gen.integers(0, s_min, (t, k0)).astype(np.int32))),
+        "eu2005": (e_tabs, [4, 1],
+                   on_card(frontier_bits(gen, t, 246, "sparse")),
+                   on_card(gen.integers(0, 6_138, (t, 4)).astype(np.int32)))}
+
+
+def io_bytes(name, tabs, slots, r, idx, out) -> int:
+    """Bytes the call must move at these inputs: each input byte it needs
+    read once (the frontier, the parent rows and table rows its keys
+    select, distinct rows counted once) and each output written once."""
+    t = TILE_ROWS
+    w = tabs[0].shape[1]
+    if name == "tile_intersect":
+        keys = idx[:, slots]
+        rows = sum(int(torch.unique(keys[:, j]).numel())
+                   for j in range(len(slots)))
+        clears = 1
+        return (t * (len(set(slots)) + clears) * 4 + rows * w * 4
+                + t * w * 4 + t * 4)
+    rows, child = out[0], out[4]
+    k0 = idx.shape[1]
+    nbytes = (r.numel() * 4 + int(torch.unique(rows).numel()) * k0 * 4
+              + t * (4 + 4 + 1) + 4 + child.numel() * 4)
+    if name == "expand_intersect":
+        gathered = sum(int(torch.unique(child[:, s]).numel()) for s in slots)
+        nbytes += gathered * w * 4 + t * w * 4 + t * 4
+    return nbytes
+
+
+def time_kernels(bi, ref, cq, dev, launches, errs, floors) -> list:
+    """tile_intersect, expand_select and expand_intersect at the two shapes
+    of `bitmap_shapes`, warm (median_ms) and with the L2 flushed
+    (flushed_ms), beside their plain versions, their bounds and the launch
+    floors; and the host's time a call (host_us), the kernel's and the
+    plain version's, since the matcher waits on the host."""
+    from repro_torch.core.engine import upload_plan
+    tables, _ = upload_plan(cq.plan, dev)
+    flush = torch.empty(100 * 2 ** 20, dtype=torch.int8, device=dev)
+    t = TILE_ROWS
+    per = {name: {} for name in KERNEL_ROUTE}
+    for shape, (tabs, slots, r, idx) in bitmap_shapes(cq.plan, tables,
+                                                      dev).items():
+        k0 = idx.shape[1]
+        t_idx = torch.cat([idx, idx[:, :1]], dim=1).contiguous()
+        specs = {
+            "tile_intersect": (
+                lambda: bi.tile_intersect(tabs, t_idx, slots, [k0]),
+                lambda: ref.tile_intersect_ref(tabs, t_idx, slots, [k0])),
+            "expand_select": (
+                lambda: bi.expand_select(r, 0, t, idx),
+                lambda: ref.expand_select_ref(r, 0, t, idx)),
+            "expand_intersect": (
+                lambda: bi.expand_intersect(r, 0, t, idx, tabs, slots, [k0]),
+                lambda: ref.expand_intersect_ref(r, 0, t, idx, tabs, slots,
+                                                 [k0])),
+        }
+        for name, (kern, plain) in specs.items():
+            out = kern()
+            err = max_abs_err(out, plain())
+            if err:
+                raise SystemExit(f"{name} disagrees at the {shape} shape")
+            nbytes = io_bytes(name, tabs, slots,
+                              r, t_idx if name == "tile_intersect" else idx,
+                              out)
+            row = {"k": len(tabs), "W": tabs[0].shape[1], "T": t,
+                   "W_in": r.shape[1], "K0": k0,
+                   "ms": median_ms(kern),
+                   "flushed_ms": flushed_ms(kern, flush),
+                   "plain_ms": median_ms(plain),
+                   "host_us": host_us(kern),
+                   "plain_host_us": host_us(plain),
+                   "bytes": nbytes,
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "max_abs_err": err}
+            per[name][shape] = row
+            print(f"time {name} at {shape}: " + json.dumps(row), flush=True)
     out = []
-    for name, nbytes, kern, plain in specs:
-        err = max_abs_err(kern(), plain())
-        if err:
-            raise SystemExit(f"{name} disagrees at the main-path shape")
-        ms, plain_ms = median_ms(kern), median_ms(plain)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        print(f"time {name}: k={k} W={w} T={t} K0={k0} ms={ms:.6f} "
-              f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f}", flush=True)
+    for name, shapes in per.items():
+        d = shapes["dblp"]
         out.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/bitmap_intersect.cu",
             "replaces": ("src/repro/kernels/bitmap_intersect.py:88"
-                         if name == "bitmap_intersect"
+                         if name == "tile_intersect"
                          else "src/repro/kernels/bitmap_intersect.py:179"),
             "launches": launches[KERNEL_ROUTE[name]][name],
             "launches_by_route": {route: counts[name]
                                   for route, counts in launches.items()},
-            "max_abs_err": max(errs[name], err),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None,
-            "launch_floor_ms": floor_ms,
-            "shape": {"k": k, "W": w, "T": t, "K0": k0}})
+            "max_abs_err": max(errs[name], *(v["max_abs_err"]
+                                             for v in shapes.values())),
+            "ms": d["ms"], "plain_ms": d["plain_ms"],
+            "bound_ms": d["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "launch_floor_ms": floors["warm"],
+            "launch_floor_flushed_ms": floors["flushed"],
+            "shapes": shapes})
     return out
 
 
@@ -800,6 +1082,8 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import api
     from repro_torch.core.ref_engine import cemr_match
+    from repro_torch.core import bitops as bitops_mod
+    from repro_torch.core import engine as engine_mod
     from repro_torch.kernels import bitmap_intersect as bi
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import ops as kops
@@ -818,13 +1102,14 @@ def main() -> int:
     dev = torch.device("cuda")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as ex:
-        report = ex.submit(ptxas_report, build, fd)
-        for name, (lib, secs) in build_all(build, (bi.LIBRARY,
-                                                   fd.LIBRARY)).items():
+    libraries = (bi.LIBRARY, fd.LIBRARY)
+    with ThreadPoolExecutor(len(libraries)) as ex:
+        reports = [ex.submit(ptxas_report, build, name) for name in libraries]
+        for name, (lib, secs) in build_all(build, libraries).items():
             print(f"build: {lib.name} in {secs:.3f} s", flush=True)
-        for line in report.result():
-            print(f"ptxas: {line}", flush=True)
+        for report in reports:
+            for line in report.result():
+                print(f"ptxas: {line}", flush=True)
     print(f"build: all in {time.perf_counter() - t0:.3f} s", flush=True)
     for way, q16, kv16 in (("tensor_core", 1, 1), ("cuda_core", 1, 0)):
         smem = fd._lib().cemr_flash_decode_smem_bytes(
@@ -835,7 +1120,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     errs = check_kernels(bi, ref, dev)
-    print(f"bitmap kernels agree with their plain versions bit for bit "
+    new_errs, n_new = check_new_kernels(bi, ref, dev)
+    errs.update(new_errs)
+    print(f"bitmap kernels agree with their plain versions bit for bit, "
+          f"{n_new} cases of the new entry points "
           f"({time.perf_counter() - t0:.3f} s)", flush=True)
     t0 = time.perf_counter()
     fd_errs, n_fd = check_flash_decode(fd, ref, dev)
@@ -847,15 +1135,14 @@ def main() -> int:
     by_route, launches = {}, {}
     for route in ("auto", "fused"):
         t0 = time.perf_counter()
-        by_route[route], launches[route] = drive(bi, work, route)
+        by_route[route], launches[route], calls = drive(
+            bi, engine_mod, bitops_mod, work, route)
         for r in by_route[route]:
             print("run " + json.dumps(r), flush=True)
         print(f"main path {route}: {len(work)} runs in "
-              f"{time.perf_counter() - t0:.3f} s, launches {launches[route]}",
-              flush=True)
-    for name, route in KERNEL_ROUTE.items():
-        if launches[route][name] <= 0:
-            raise SystemExit(f"{name} never launched on the {route} route")
+              f"{time.perf_counter() - t0:.3f} s, launches {launches[route]}, "
+              f"path calls {calls}", flush=True)
+        check_launches(route, launches[route], calls)
     check_runs(by_route)
 
     t0 = time.perf_counter()
@@ -880,10 +1167,14 @@ def main() -> int:
     shapes_cq = next(w["compiled"] for w in work
                      if (w["dataset"], w["scale"], w["query_size"])
                      == ("dblp", 1.0, 8))
-    floor_ms = median_ms(lambda: torch.cuda._sleep(0))
+    floors = {"warm": median_ms(lambda: torch.cuda._sleep(0))}
+    flush = torch.empty(100 * 2 ** 20, dtype=torch.int8, device=dev)
+    floors["flushed"] = flushed_ms(lambda: torch.cuda._sleep(0), flush)
+    del flush
     print(f"launch floor: torch.cuda._sleep(0) back to back "
-          f"{floor_ms:.6f} ms", flush=True)
-    kernels = time_kernels(bi, ref, shapes_cq, dev, launches, errs, floor_ms)
+          f"{floors['warm']:.6f} ms, alone after an L2 flush "
+          f"{floors['flushed']:.6f} ms", flush=True)
+    kernels = time_kernels(bi, ref, shapes_cq, dev, launches, errs, floors)
     kernels.append(time_flash_decode(
         fd, ref, dev, d32k,
         {path: {"calls": res["launches"],
@@ -895,7 +1186,7 @@ def main() -> int:
          "decode_32k step": d32k["vs_plain"]["attention_held"]
                             ["max_abs_err"]}))
 
-    print("kernels: bitmap_intersect, fused_expand_intersect, flash_decode")
+    print("kernels: " + ", ".join(k["name"] for k in kernels))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,16 @@
 """Where the time of the port's paths goes, on one CUDA card.
 
-    python3 chip_trace.py
+    python3 chip_trace.py [--matcher-only] [--src DIR]
 
 Runs `repro_torch.api.Matcher.count(engine="vector")` on synthetic dblp at
 scale 1.0 with `random_query(size=8, seed=7)`, once to warm up and then
-under `torch.profiler` for each `intersect` route; then one full-width
+under `torch.profiler` for each `intersect` route, and prints beside the
+window's numbers the median wall of 5 unprofiled counts, the launches a
+superstep and the bitmap kernels' launches (each wrapper's count over
+the profiled count). `--src DIR`
+imports `repro_torch` from DIR instead of this checkout's `src/` (to
+profile another tree in the same call); `--matcher-only` skips the LM
+windows. Then, unless skipped, one full-width
 qwen2-1.5b decode step (bfloat16, random weights from seed 0) as the
 serve loop has it (batch 4, float32 cache of 24 positions) and as
 `decode_32k` has it (batch 32, bfloat16 cache of 32,772 positions filled
@@ -16,6 +22,7 @@ the most device time. Needs CUDA; exits non-zero without it.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -80,11 +87,17 @@ def trace_lm(card: str) -> None:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--src", default=str(Path(__file__).resolve().parent
+                                             / "src"))
+    parser.add_argument("--matcher-only", action="store_true")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_trace: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch import api
+    from repro_torch.kernels import bitmap_intersect as bi
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -95,14 +108,30 @@ def main() -> int:
     m = api.Matcher(ds)
     for intersect in ("auto", "fused"):
         m.count(q, engine="vector", intersect=intersect)      # warm
+        walls = []
+        for _ in range(5):                   # unprofiled, synchronised
+            t0 = time.perf_counter()
+            m.count(q, engine="vector", intersect=intersect)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        bi.reset_launches()
         out, stats = profiled(lambda: m.count(q, engine="vector",
                                               intersect=intersect))
+        steps = max(out.stats.supersteps, 1)
+        bitmap = {name: fn.launches for name, fn in vars(bi).items()
+                  if callable(fn) and hasattr(fn, "launches")}
         print(json.dumps({
-            "card": card, "path": "matcher", "intersect": intersect,
-            "count": out.count, "supersteps": out.stats.supersteps,
-            "launches_per_superstep": stats["kernel_launches"]
-            / max(out.stats.supersteps, 1), **stats}), flush=True)
-    trace_lm(card)
+            "card": card, "path": "matcher", "src": args.src,
+            "intersect": intersect, "count": out.count,
+            "supersteps": out.stats.supersteps,
+            "count_ms_unprofiled": sorted(walls)[len(walls) // 2],
+            "count_ms_unprofiled_all": walls,
+            "launches_per_superstep": stats["kernel_launches"] / steps,
+            "bitmap_launches_per_superstep": {
+                name: n / steps for name, n in bitmap.items()},
+            **stats}), flush=True)
+    if not args.matcher_only:
+        trace_lm(card)
     return 0
 
 

@@ -7,12 +7,15 @@ Torch port of `repro.core.engine` (the TPU-native tile engine):
     BM columns (aggregated white mappings, bitmaps over per-label candidate
     spaces, stored as int32 words);
   * extending u_i = gather adjacency bitmap rows for the backward-neighbor
-    mappings and AND them — the `bitmap_intersect` CUDA kernel on the card
-    (its plain torch version on the CPU), or plain torch gathers with
-    intersect="jnp";
+    mappings, AND them and clear the same-label bits — one
+    `tile_intersect` CUDA launch on the card (its plain torch version on
+    the CPU), or plain torch gathers with intersect="jnp";
   * CEM: Case-2/4.2 extensions *store* R as a bitmap column;
   * expansion to IDX columns is a fixed-capacity enumeration of set bits
-    (`bitops.expand_select`); overflow re-enters the host work stack;
+    (the `expand_select` kernel, or `bitops.expand_select` with
+    intersect="jnp"; with intersect="fused" the `expand_intersect` kernel
+    also computes the next extension in the same launch); overflow
+    re-enters the host work stack;
   * CER: the cross-tile ring buffer in scheduler.py serves brother rows;
   * contained-vertex pruning = per-row popcount threshold;
   * injectivity: same-label IDX values are kept distinct by eager bit
@@ -31,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kernels import bitmap_intersect as _kernels
 from . import bitops
 from .count import iter_injective
 from .encoding import QueryAnalysis
@@ -125,20 +129,18 @@ def _union_rows(table, bmcol):
     return (hit << shifts[None, None, :]).sum(dim=2, dtype=torch.int32)
 
 
-def _resolve_intersect_fn(intersect: str):
-    """Map the `intersect` knob to an intersect_fn (None = plain torch
-    gathers): "auto", "pallas" and "fused" use the bitmap-intersect kernel
-    wrapper (the CUDA kernel on the card, its plain version on the CPU);
-    "jnp" forces the plain gathers. Unlike the reference, "fused" keeps the
-    kernel for the extends it does not fuse: in eager torch the plain
-    gathers are k+1 launches where the kernel is one."""
+def _uses_kernels(intersect: str) -> bool:
+    """Whether the `intersect` knob routes the extension computes through
+    the bitmap kernels' wrappers (the CUDA kernels on the card, their plain
+    versions on the CPU): "auto", "pallas" and "fused" do, "jnp" forces
+    plain torch gathers and the torch `bitops.expand_select`. Unlike the
+    reference, "fused" keeps the kernels for the extends it does not fuse:
+    in eager torch the plain gathers are k+1 launches where the kernel is
+    one."""
     if intersect not in INTERSECT_MODES:
         raise ValueError(f"intersect must be one of {INTERSECT_MODES}, "
                          f"got {intersect!r}")
-    if intersect == "jnp":
-        return None
-    from ..kernels import ops as _kops
-    return _kops.make_intersect_fn()
+    return intersect != "jnp"
 
 
 class VectorEngine:
@@ -165,9 +167,11 @@ class VectorEngine:
         # overlap only changes *when* superstep readbacks happen, never
         # what is computed
         self.overlap = overlap
+        # the selection kernel expands every boundary on a kernel route;
+        # a caller's intersect_fn takes the pair extends' place of
+        # tile_intersect, and turns the fused boundary off
+        self.kernels = _uses_kernels(intersect)
         self.fused_expand = intersect == "fused" and intersect_fn is None
-        if intersect_fn is None:
-            intersect_fn = _resolve_intersect_fn(intersect)
         self.intersect_fn = intersect_fn
         self.tables, self.masks = upload_plan(self.plan, self.device)
         self.stats = VectorStats()
@@ -216,12 +220,20 @@ class VectorEngine:
         con = max(op.con_threshold, 1) if self.use_cv else 1
         root = op.level == 0
         ext_fn = self.intersect_fn
+        tile_kernel = self.kernels and ext_fn is None
+        slots = tuple(s for (s, _, _) in pairs)
+        same_slots = tuple(op.same_label_idx_slots)
 
         def compute_r(tile, tables, masks):
             pop = None
             if root:
                 r = masks[op.vertex][None, :].expand(
                     tile["alive"].shape[0], op.n_words)
+            elif pairs and tile_kernel:
+                # keys, AND, same-label clears and popcount: one launch
+                tabs = [tables[f"{u}:{w}"] for (_, u, w) in pairs]
+                return _kernels.tile_intersect(tabs, tile["idx"], slots,
+                                               same_slots)
             elif pairs:
                 if ext_fn is not None:
                     tabs = [tables[f"{u}:{w}"] for (_, u, w) in pairs]
@@ -243,7 +255,7 @@ class VectorEngine:
                 r = _union_rows(tables[f"{op.union_src}:{op.vertex}"],
                                 tile["bm"][op.union_src])
             cleared = 0
-            for s in op.same_label_idx_slots:
+            for s in same_slots:
                 r, c = bitops.clear_bit_rows_count(r, tile["idx"][:, s])
                 cleared = cleared + c
             pop = bitops.row_popcount(r) if pop is None else pop - cleared
@@ -258,9 +270,13 @@ class VectorEngine:
         ok = tile["alive"] & (pop >= con) & (pop > 0)
         return torch.where(ok[:, None], r, 0), torch.where(ok, pop, 0), ok
 
-    def _make_expand(self, si: int, *, with_sel: bool = False):
+    def _make_expand_rest(self, si: int):
+        """The part of expand stage `si` after the bit selection: gather
+        the surviving BM columns through `rows`, prune them by the white
+        vertices' tables and the same-label bits, and mark rows whose
+        columns emptied dead. Returns rest(tile, rows, bitpos, valid,
+        child_idx, tables) -> child tile."""
         stage = self._stages[si]
-        t_out = self.t
         if stage[0] == "decompose":
             _, v, _slot, same_bm, _ = stage
             wt_prune: list[tuple[int, str]] = []
@@ -272,10 +288,8 @@ class VectorEngine:
             same_label_bm = list(op.same_label_bm)
             drop_bm = None
 
-        def expand(tile, r, start, tables):
-            rows, bitpos, valid, total = bitops.expand_select(r, start, t_out)
+        def rest(tile, rows, bitpos, valid, child_idx, tables):
             rows_l = rows.long()
-            idx = torch.cat([tile["idx"][rows_l], bitpos[:, None]], dim=1)
             bm_out = {}
             alive = valid
             for u, col in tile["bm"].items():
@@ -289,21 +303,39 @@ class VectorEngine:
                     g = bitops.clear_bit_rows(g, bitpos)
                 alive = alive & (bitops.row_popcount(g) > 0)
                 bm_out[u] = g
-            out = {"idx": idx, "bm": bm_out, "alive": alive}
-            if with_sel:
-                # the raw bit selection, for the fused kernel's double
-                # indirection through (rows, bitpos)
-                return out, total, rows, bitpos
-            return out, total
+            return {"idx": child_idx, "bm": bm_out, "alive": alive}
+
+        return rest
+
+    def _make_expand(self, si: int):
+        """expand(tile, r, start, tables) -> (child tile, total): the set
+        bits [start, start + tile_rows) of the frontier bitmap r, selected
+        by the `expand_select` kernel on a kernel route (with the child's
+        index columns) or by `bitops.expand_select` with intersect="jnp"."""
+        t_out = self.t
+        rest = self._make_expand_rest(si)
+        kernels = self.kernels
+
+        def expand(tile, r, start, tables):
+            if kernels:
+                rows, bitpos, valid, total, child = _kernels.expand_select(
+                    r, start, t_out, tile["idx"])
+            else:
+                rows, bitpos, valid, total = bitops.expand_select(
+                    r, start, t_out)
+                child = torch.cat([tile["idx"][rows.long()],
+                                   bitpos[:, None]], dim=1)
+            return rest(tile, rows, bitpos, valid, child, tables), total
 
         return expand
 
     def _make_expand_fused(self, si: int, sj: int):
         """Fused expand+intersect+popcount across the boundary between
-        expand stage `si` and the extend stage `sj` that follows it: the
-        fused kernel consumes the bit selection straight from
-        `bitops.expand_select` and produces the child intersection
-        (R, pop) without materializing the gathered index columns.
+        expand stage `si` and the extend stage `sj` that follows it: one
+        `expand_intersect` launch selects the frontier's bits, builds the
+        child's index columns and computes the child's extension (R, pop)
+        with its same-label clears — the same pure function of the key
+        columns as `_make_compute_parts(sj)`.
 
         Returns None when the fused path is off (`intersect != "fused"`)
         or the stage pair is ineligible (root / union / decompose extends
@@ -317,22 +349,19 @@ class VectorEngine:
         op: LevelOp = stage[1]
         if op.level == 0 or not op.bk_pairs:
             return None
-        from ..kernels import ops as _kops
-        pairs = [(s, u, op.vertex) for (s, u) in op.bk_pairs]
-        slots = tuple(s for (s, _, _) in pairs)
-        fused_fn = _kops.make_fused_expand_intersect_fn()
-        expand = self._make_expand(si, with_sel=True)
-        same_slots = list(op.same_label_idx_slots)
+        t_out = self.t
+        keys = [f"{u}:{op.vertex}" for (_, u) in op.bk_pairs]
+        slots = tuple(s for (s, _) in op.bk_pairs)
+        same_slots = tuple(op.same_label_idx_slots)
+        rest = self._make_expand_rest(si)
 
         def fused(tile, r, start, tables):
-            out, total, rows, bitpos = expand(tile, r, start, tables)
-            tabs = [tables[f"{u}:{w}"] for (_, u, w) in pairs]
-            r2, pop = fused_fn(tabs, tile["idx"], rows, bitpos, slots)
-            cleared = 0
-            for s in same_slots:
-                r2, c = bitops.clear_bit_rows_count(r2, out["idx"][:, s])
-                cleared = cleared + c
-            return out, total, (r2, pop - cleared)
+            rows, bitpos, valid, total, child, r2, pop2 = \
+                _kernels.expand_intersect(r, start, t_out, tile["idx"],
+                                          [tables[k] for k in keys], slots,
+                                          same_slots)
+            return (rest(tile, rows, bitpos, valid, child, tables), total,
+                    (r2, pop2))
 
         return fused
 

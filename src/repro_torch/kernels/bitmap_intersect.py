@@ -1,8 +1,21 @@
-"""Wrappers of the Hopper bitmap-intersect kernels (`csrc/bitmap_intersect.cu`).
+"""Wrappers of the Hopper bitmap kernels (`csrc/bitmap_intersect.cu`).
 
-    bitmap_intersect(tables, idxs)                  -> (R (T, W), pop (T, 1))
+    tile_intersect(tables, idx, slots, clear_slots)   -> (R (T, W), pop (T,))
+    expand_select(r, start, n_out, idx)
+        -> (rows, bitpos, valid, total, child_idx)
+    expand_intersect(r, start, n_out, idx, tables, slots, clear_slots)
+        -> (rows, bitpos, valid, total, child_idx, R2, pop2)
+    bitmap_intersect(tables, idxs)                    -> (R (T, W), pop (T, 1))
     fused_expand_intersect(tables, idx, rows, bitpos, slots)
-                                                    -> (R (T, W), pop (T, 1))
+                                                      -> (R (T, W), pop (T, 1))
+
+`tile_intersect` is the engine's whole pair-branch extension compute in one
+launch: keys read from a tile's index columns, the AND, the same-label
+clears and the popcount after them. `expand_select` is the frontier's
+set-bit selection and the child tile's index columns; `expand_intersect`
+adds the child's first extension to the same launch. `bitmap_intersect`
+and `fused_expand_intersect` keep the TPU kernels' contracts as thin entry
+points over the same device code.
 
 Bitmaps are int32 tensors carrying the reference's uint32 bits. A wrapper
 takes the plain torch version (`ref.py`) only because its tensors lie on the
@@ -13,19 +26,36 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import operator
 
 import torch
 
 from . import ref
 from .build import load_library
 
-__all__ = ["bitmap_intersect", "fused_expand_intersect", "reset_launches",
-           "LIBRARY"]
+__all__ = ["tile_intersect", "expand_select", "expand_intersect",
+           "bitmap_intersect", "fused_expand_intersect", "reset_launches",
+           "WRAPPERS", "LIBRARY", "MAX_TABLES", "MAX_CLEARS"]
 
 LIBRARY = "bitmap_intersect"
+MAX_TABLES = 32                  # kMaxTables in the .cu source
+MAX_CLEARS = 32                  # kMaxClears
+SELECT_CTAS = 8                  # kSelectCtas
+SMEM_CUM_ROWS = 8191             # kSmemCumRows
 
-_META: dict[tuple, torch.Tensor] = {}
-_META_MAX = 1024
+
+class _TableSet(ctypes.Structure):
+    """The kernels' by-value parameter struct (`TableSet` in the source)."""
+    _fields_ = [("base", ctypes.c_void_p * MAX_TABLES),
+                ("rows", ctypes.c_int * MAX_TABLES),
+                ("slot", ctypes.c_int * MAX_TABLES),
+                ("clear", ctypes.c_int * MAX_CLEARS),
+                ("k", ctypes.c_int),
+                ("n_clear", ctypes.c_int)]
+
+
+_TABLE_SETS: dict[tuple, _TableSet] = {}
+_TABLE_SETS_MAX = 1024
 
 
 @functools.cache
@@ -33,21 +63,50 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (once)."""
     lib = load_library(LIBRARY)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cemr_max_tables.argtypes = []
-    lib.cemr_max_tables.restype = i
+    consts = {"cemr_max_tables": MAX_TABLES, "cemr_max_clears": MAX_CLEARS,
+              "cemr_table_set_bytes": ctypes.sizeof(_TableSet),
+              "cemr_select_ctas": SELECT_CTAS,
+              "cemr_smem_cum_rows": SMEM_CUM_ROWS}
+    for name, want in consts.items():
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+        if getattr(lib, name)() != want:
+            raise RuntimeError(f"csrc/bitmap_intersect.cu and its wrapper "
+                               f"disagree: {name}")
     lib.cemr_error_string.argtypes = [i]
     lib.cemr_error_string.restype = ctypes.c_char_p
-    lib.cemr_bitmap_intersect.argtypes = [p, i, p, i, i, p, p, p]
-    lib.cemr_bitmap_intersect.restype = i
-    lib.cemr_fused_expand_intersect.argtypes = [p, i, p, i, i, p, p, i, i,
-                                                p, p, p]
-    lib.cemr_fused_expand_intersect.restype = i
+    lib.cemr_intersect.argtypes = [p, p, i, i, p, p, i, i, p, p, p]
+    lib.cemr_intersect.restype = i
+    lib.cemr_expand_select.argtypes = [p, p, i, i, ctypes.c_longlong, i, p,
+                                       i, p, p, p, p, p, p, i, p, p, p]
+    lib.cemr_expand_select.restype = i
     return lib
+
+
+def _table_set(tables, slots, clears) -> _TableSet:
+    """The parameter struct for these tables, cached by its values (the
+    plan's tables keep their addresses, so a set is built once)."""
+    key = (tuple(t.data_ptr() for t in tables),
+           tuple(t.shape[0] for t in tables), slots, clears)
+    ts = _TABLE_SETS.get(key)
+    if ts is None:
+        if len(_TABLE_SETS) >= _TABLE_SETS_MAX:
+            _TABLE_SETS.clear()
+        ts = _TableSet()
+        for j, (ptr, n, s) in enumerate(zip(key[0], key[1], slots)):
+            ts.base[j], ts.rows[j], ts.slot[j] = ptr, n, s
+        for j, c in enumerate(clears):
+            ts.clear[j] = c
+        ts.k, ts.n_clear = len(tables), len(clears)
+        _TABLE_SETS[key] = ts
+    return ts
 
 
 def _check_tables(tables, device) -> int:
     if not tables:
         raise ValueError("need at least one table")
+    if len(tables) > MAX_TABLES:
+        raise ValueError(f"at most {MAX_TABLES} tables, got {len(tables)}")
     w = tables[0].shape[1] if tables[0].dim() == 2 else -1
     for tbl in tables:
         if tbl.dtype != torch.int32 or tbl.dim() != 2:
@@ -72,19 +131,30 @@ def _check_index(name, x, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _meta(tables, slots=None) -> torch.Tensor:
-    """Device int64 array [table addresses, row counts, (slots)], cached by
-    its content so a fixed set of tables uploads it once."""
-    vals = ([t.data_ptr() for t in tables] + [t.shape[0] for t in tables]
-            + (list(slots) if slots is not None else []))
-    key = (tables[0].device, tuple(vals))
-    m = _META.get(key)
-    if m is None:
-        if len(_META) >= _META_MAX:
-            _META.clear()
-        m = torch.tensor(vals, dtype=torch.int64).to(tables[0].device)
-        _META[key] = m
-    return m
+def _check_slots(name, slots, n, bound) -> tuple:
+    slots = tuple(int(s) for s in slots)
+    if len(slots) != n or any(s < 0 or s > bound for s in slots):
+        raise ValueError(f"{name} must be {n} ints in [0, {bound}], "
+                         f"got {slots}")
+    return slots
+
+
+def _check_clears(clear_slots, bound) -> tuple:
+    clears = tuple(int(c) for c in clear_slots)
+    if len(clears) > MAX_CLEARS or any(c < 0 or c > bound for c in clears):
+        raise ValueError(f"clear_slots must be at most {MAX_CLEARS} ints in "
+                         f"[0, {bound}], got {clears}")
+    return clears
+
+
+def _on_card(dev, what) -> bool:
+    """False for the CPU (the plain version runs), True for CUDA; raises
+    for any other device."""
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {dev}")
+    return True
 
 
 def _raise_on(code: int, lib: ctypes.CDLL, what: str) -> None:
@@ -93,9 +163,141 @@ def _raise_on(code: int, lib: ctypes.CDLL, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
-def _outputs(n_out, w, device):
-    return (torch.empty((n_out, w), dtype=torch.int32, device=device),
-            torch.empty((n_out, 1), dtype=torch.int32, device=device))
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _intersect(tables, slots, clears, idx, rows, bitpos, n_out, w, dev):
+    """Launch intersect_kernel; returns (R (n_out, W), pop (n_out,))."""
+    lib = _lib()
+    r = torch.empty((n_out, w), dtype=torch.int32, device=dev)
+    pop = torch.empty((n_out,), dtype=torch.int32, device=dev)
+    if n_out == 0:
+        return r, pop
+    n_in, k0 = idx.shape
+    ts = _table_set(tables, slots, clears)
+    with torch.cuda.device(dev):
+        code = lib.cemr_intersect(
+            ctypes.addressof(ts), idx.data_ptr() if k0 else None, n_in, k0,
+            None if rows is None else rows.data_ptr(),
+            None if bitpos is None else bitpos.data_ptr(), n_out, w,
+            r.data_ptr(), pop.data_ptr(), _stream(dev))
+    _raise_on(code, lib, "intersect_kernel")
+    return r, pop
+
+
+def tile_intersect(tables, idx: torch.Tensor, slots, clear_slots=()):
+    """The pair branch of an extension compute over a tile's index columns:
+    R[t] = AND_j tables[j][idx[t, slots[j]]], then for each c in
+    clear_slots the bit idx[t, c] cleared (a negative entry clears
+    nothing); pop[t] = popcount(R[t]) after the clears.
+
+    tables: k × (S_j, W) int32, contiguous; idx: (T, K) int32;
+    slots: k ints in [0, K); clear_slots: ints in [0, K).
+    Returns (R (T, W) int32, pop (T,) int32)."""
+    tables = tuple(tables)
+    dev = idx.device
+    w = _check_tables(tables, dev)
+    if idx.dim() != 2:
+        raise TypeError(f"idx must be (T, K), got {tuple(idx.shape)}")
+    _check_index("idx", idx, tuple(idx.shape), dev)
+    k_cols = idx.shape[1]
+    slots = _check_slots("slots", slots, len(tables), k_cols - 1)
+    clears = _check_clears(clear_slots, k_cols - 1)
+    if not _on_card(dev, "tile_intersect"):
+        return ref.tile_intersect_ref(tables, idx, slots, clears)
+    out = _intersect(tables, slots, clears, idx, None, None, idx.shape[0], w,
+                     dev)
+    tile_intersect.launches += 1
+    return out
+
+
+def _select(r, start, n_out, idx, tables, slots, clears, w, dev):
+    """Launch expand_select_kernel (with tables: and the intersect)."""
+    lib = _lib()
+    n_in, w_in = r.shape
+    k0 = idx.shape[1]
+    i32 = dict(dtype=torch.int32, device=dev)
+    # the row scan lives in shared memory unless the frontier is too tall
+    scratch = (torch.empty((SELECT_CTAS, n_in + 1), **i32)
+               if n_in > SMEM_CUM_ROWS else None)
+    rows = torch.empty((n_out,), **i32)
+    bitpos = torch.empty((n_out,), **i32)
+    valid = torch.empty((n_out,), dtype=torch.bool, device=dev)
+    total = torch.empty((), **i32)
+    child = torch.empty((n_out, k0 + 1), **i32)
+    r2 = torch.empty((n_out, w), **i32)
+    pop2 = torch.empty((n_out,), **i32)
+    ts = _table_set(tables, slots, clears)
+    with torch.cuda.device(dev):
+        code = lib.cemr_expand_select(
+            ctypes.addressof(ts), r.data_ptr(), n_in, w_in, start, n_out,
+            idx.data_ptr() if k0 else None, k0,
+            None if scratch is None else scratch.data_ptr(),
+            rows.data_ptr(), bitpos.data_ptr(), valid.data_ptr(),
+            total.data_ptr(), child.data_ptr(), w,
+            r2.data_ptr() if tables else None,
+            pop2.data_ptr() if tables else None, _stream(dev))
+    _raise_on(code, lib, "expand_select_kernel")
+    return rows, bitpos, valid, total, child, r2, pop2
+
+
+def _check_select(r, start, n_out, idx):
+    dev = r.device
+    if r.dim() != 2 or r.shape[0] < 1 or r.shape[1] < 1:
+        raise ValueError(f"r must be (T_in >= 1, W_in >= 1), got "
+                         f"{tuple(r.shape)}")
+    _check_index("r", r, tuple(r.shape), dev)
+    if idx.dim() != 2:
+        raise TypeError(f"idx must be (T_in, K0), got {tuple(idx.shape)}")
+    _check_index("idx", idx, (r.shape[0], idx.shape[1]), dev)
+    start, n_out = operator.index(start), operator.index(n_out)
+    if start < 0 or n_out < 0 or start + n_out >= 2 ** 31:
+        raise ValueError(f"need 0 <= start, 0 <= n_out and start + n_out "
+                         f"< 2**31, got start={start} n_out={n_out}")
+    return dev, start, n_out
+
+
+def expand_select(r: torch.Tensor, start, n_out: int, idx: torch.Tensor):
+    """Select the set-bit ranks [start, start + n_out) of the frontier
+    bitmap r in row-major order (`bitops.expand_select`) and build the
+    child tile's index columns.
+
+    r: (T_in, W_in) int32; start: host int >= 0; idx: (T_in, K0) int32
+    parent index columns (K0 may be 0). Returns rows (n_out,) int32,
+    bitpos (n_out,) int32, valid (n_out,) bool, total () int32 (left on the
+    device) and child_idx (n_out, K0 + 1) int32 = idx[rows] ++ bitpos."""
+    dev, start, n_out = _check_select(r, start, n_out, idx)
+    if not _on_card(dev, "expand_select"):
+        return ref.expand_select_ref(r, start, n_out, idx)
+    out = _select(r, start, n_out, idx, (), (), (), 0, dev)
+    expand_select.launches += 1
+    return out[:5]
+
+
+def expand_intersect(r: torch.Tensor, start, n_out: int, idx: torch.Tensor,
+                     tables, slots, clear_slots=()):
+    """`expand_select` and the child's first extension in one launch: for
+    child row t, key slot s < K0 reads idx[rows[t], s] and slot K0 reads
+    bitpos[t]; R2[t] is the AND of the keyed table rows with the bit of
+    child column c cleared for each c in clear_slots, pop2[t] its popcount
+    after the clears. Unmasked: rows at ranks >= total are computed from
+    their clamped selection like any other.
+
+    Returns (rows, bitpos, valid, total, child_idx, R2 (n_out, W) int32,
+    pop2 (n_out,) int32)."""
+    tables = tuple(tables)
+    dev, start, n_out = _check_select(r, start, n_out, idx)
+    w = _check_tables(tables, dev)
+    k0 = idx.shape[1]
+    slots = _check_slots("slots", slots, len(tables), k0)
+    clears = _check_clears(clear_slots, k0)
+    if not _on_card(dev, "expand_intersect"):
+        return ref.expand_intersect_ref(r, start, n_out, idx, tables, slots,
+                                        clears)
+    out = _select(r, start, n_out, idx, tables, slots, clears, w, dev)
+    expand_intersect.launches += 1
+    return out
 
 
 def bitmap_intersect(tables, idxs: torch.Tensor):
@@ -108,41 +310,26 @@ def bitmap_intersect(tables, idxs: torch.Tensor):
     w = _check_tables(tables, dev)
     k = len(tables)
     _check_index("idxs", idxs, (idxs.shape[0], k), dev)
-    if dev.type == "cpu":
+    if not _on_card(dev, "bitmap_intersect"):
         return ref.bitmap_intersect_ref(tables, idxs)
-    if dev.type != "cuda":
-        raise ValueError(f"bitmap_intersect runs on cpu or cuda, not {dev}")
-    lib = _lib()
-    if k > lib.cemr_max_tables():
-        raise ValueError(f"at most {lib.cemr_max_tables()} tables, got {k}")
-    n_out = idxs.shape[0]
-    r, pop = _outputs(n_out, w, dev)
-    if n_out == 0:
-        return r, pop
-    meta = _meta(tables)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.cemr_bitmap_intersect(
-            meta.data_ptr(), k, idxs.data_ptr(), n_out, w, r.data_ptr(),
-            pop.data_ptr(), stream)
-    _raise_on(code, lib, "bitmap_intersect")
+    r, pop = _intersect(tables, tuple(range(k)), (), idxs, None, None,
+                        idxs.shape[0], w, dev)
     bitmap_intersect.launches += 1
-    return r, pop
+    return r, pop[:, None]
 
 
 def fused_expand_intersect(tables, idx: torch.Tensor, rows: torch.Tensor,
                            bitpos: torch.Tensor, slots):
-    """Fused frontier expansion + k-way AND + popcount: slot s < K0 reads
-    table row idx[rows[t], s], slot s == K0 reads bitpos[t].
+    """Fused frontier expansion + k-way AND + popcount over a given
+    selection: slot s < K0 reads table row idx[rows[t], s], slot s == K0
+    reads bitpos[t].
 
     tables: k × (S_j, W) int32; idx: (Tin, K0) int32 parent index columns
     (K0 may be 0); rows, bitpos: (T,) int32; slots: k ints in [0, K0].
     Returns (R (T, W) int32, pop (T, 1) int32), unmasked."""
     tables = tuple(tables)
-    slots = tuple(int(s) for s in slots)
     dev = rows.device
     w = _check_tables(tables, dev)
-    k = len(tables)
     n_out = rows.shape[0]
     if idx.dim() != 2 or idx.shape[0] < 1:
         raise ValueError(f"idx must be (Tin >= 1, K0), got {tuple(idx.shape)}")
@@ -150,36 +337,23 @@ def fused_expand_intersect(tables, idx: torch.Tensor, rows: torch.Tensor,
     _check_index("idx", idx, (n_in, k0), dev)
     _check_index("rows", rows, (n_out,), dev)
     _check_index("bitpos", bitpos, (n_out,), dev)
-    if len(slots) != k or any(s < 0 or s > k0 for s in slots):
-        raise ValueError(f"slots must be {k} ints in [0, {k0}], got {slots}")
-    if dev.type == "cpu":
+    slots = _check_slots("slots", slots, len(tables), k0)
+    if not _on_card(dev, "fused_expand_intersect"):
         return ref.fused_expand_intersect_ref(tables, idx, rows, bitpos,
                                               slots=slots)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_expand_intersect runs on cpu or cuda, "
-                         f"not {dev}")
-    lib = _lib()
-    if k > lib.cemr_max_tables():
-        raise ValueError(f"at most {lib.cemr_max_tables()} tables, got {k}")
-    r, pop = _outputs(n_out, w, dev)
-    if n_out == 0:
-        return r, pop
-    meta = _meta(tables, slots)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.cemr_fused_expand_intersect(
-            meta.data_ptr(), k, idx.data_ptr() if k0 else None, n_in, k0,
-            rows.data_ptr(), bitpos.data_ptr(), n_out, w, r.data_ptr(),
-            pop.data_ptr(), stream)
-    _raise_on(code, lib, "fused_expand_intersect")
+    r, pop = _intersect(tables, slots, (), idx, rows, bitpos, n_out, w, dev)
     fused_expand_intersect.launches += 1
-    return r, pop
+    return r, pop[:, None]
+
+
+WRAPPERS = (tile_intersect, expand_select, expand_intersect,
+            bitmap_intersect, fused_expand_intersect)
 
 
 def reset_launches() -> None:
-    """Set both wrappers' launch counts to 0."""
-    bitmap_intersect.launches = 0
-    fused_expand_intersect.launches = 0
+    """Set every wrapper's launch count to 0."""
+    for fn in WRAPPERS:
+        fn.launches = 0
 
 
 reset_launches()

@@ -2,7 +2,11 @@
 
 The bitmap adapters keep the reference's `(R, pop)` contract, with pop
 flattened to (T,) int32, so the engine's contained-vertex prune never
-re-reduces R. `decode_attention` is the LM decode path's attention. The
+re-reduces R: `make_intersect_fn` is the `VectorEngine(intersect_fn=...)`
+hook, `make_fused_expand_intersect_fn` the reference's fused contract over
+a given selection. The engine's own kernel routes call the redesigned
+entry points (`tile_intersect`, `expand_select`, `expand_intersect`)
+directly. `decode_attention` is the LM decode path's attention. The
 wrappers pick the kernel or its plain version by the tensors' device.
 """
 from __future__ import annotations
@@ -27,8 +31,8 @@ def make_intersect_fn():
 
 
 def make_fused_expand_intersect_fn():
-    """Adapter for `VectorEngine._make_expand_fused`: (tables, parent idx
-    (Tin, K0), rows, bitpos, slots) → (R (T, W), pop (T,))."""
+    """The reference's fused contract: (tables, parent idx (Tin, K0), rows,
+    bitpos, slots) → (R (T, W), pop (T,)), with no same-label clears."""
 
     def fn(tables, idx, rows, bitpos, slots):
         r, pop = fused_expand_intersect(tables, idx, rows, bitpos, slots)

@@ -11,9 +11,11 @@ from __future__ import annotations
 
 import torch
 
+from ..core import bitops
 from ..core.bitops import row_popcount
 
 __all__ = ["bitmap_intersect_ref", "fused_expand_intersect_ref",
+           "tile_intersect_ref", "expand_select_ref", "expand_intersect_ref",
            "flash_decode_ref", "flash_decode_split_ref", "leaf_count_ref"]
 
 
@@ -48,6 +50,47 @@ def fused_expand_intersect_ref(tables, idx, rows, bitpos, *, slots):
     cols = torch.cat([parent, bitpos[:, None]], dim=1)
     idxs = torch.stack([cols[:, s] for s in slots], dim=1)
     return bitmap_intersect_ref(tables, idxs)
+
+
+def _clear_cols(r, pop, cols, clear_slots):
+    """The engine's same-label clears: for each c in clear_slots, clear bit
+    cols[:, c] of each row (a negative entry clears nothing) and take the
+    cleared bits off pop (T,)."""
+    for c in clear_slots:
+        r, was_set = bitops.clear_bit_rows_count(r, cols[:, c])
+        pop = pop - was_set
+    return r, pop
+
+
+def tile_intersect_ref(tables, idx, slots, clear_slots=()):
+    """The engine's pair-branch composition: stack the key columns
+    idx[:, slots], `bitmap_intersect_ref`, then the same-label clears of
+    idx[:, clear_slots]. Returns (R (T, W) int32, pop (T,) int32)."""
+    idxs = torch.stack([idx[:, s] for s in slots], dim=1)
+    r, pop = bitmap_intersect_ref(tables, idxs)
+    return _clear_cols(r, pop[:, 0], idx, clear_slots)
+
+
+def expand_select_ref(r, start, n_out, idx):
+    """`bitops.expand_select` and the child tile's index columns
+    idx[rows] ++ bitpos. Returns (rows, bitpos, valid, total, child_idx)."""
+    rows, bitpos, valid, total = bitops.expand_select(r, start, n_out)
+    child = torch.cat([idx[rows.long()], bitpos[:, None]], dim=1)
+    return rows, bitpos, valid, total, child
+
+
+def expand_intersect_ref(r, start, n_out, idx, tables, slots,
+                         clear_slots=()):
+    """`expand_select_ref`, then `fused_expand_intersect_ref` over that
+    selection, then the same-label clears of the child columns
+    clear_slots. Returns (rows, bitpos, valid, total, child_idx, R2,
+    pop2 (n_out,))."""
+    rows, bitpos, valid, total, child = expand_select_ref(r, start, n_out,
+                                                          idx)
+    r2, pop2 = fused_expand_intersect_ref(tables, idx, rows, bitpos,
+                                          slots=slots)
+    r2, pop2 = _clear_cols(r2, pop2[:, 0], child, clear_slots)
+    return rows, bitpos, valid, total, child, r2, pop2
 
 
 def flash_decode_ref(q, k, v, lengths=None):
