@@ -23,6 +23,9 @@ Phases, in order; any failure exits non-zero:
               starts at 0, mid, total - 1, total and past it, empty,
               sparse, dense and all-one frontiers, negative index entries
               and same-label clears on the bitpos column.
+              tile_intersect's query lane (`check_lane`): Q 1, 2, 5, 8,
+              k 1..4, W 1, 33, 128, query ids and keys negative and past
+              the end, same-label clears on and off.
               flash_decode over B in {1, 3}, (H, Hkv) in {(4, 2), (12, 2),
               (4, 4), (16, 2), (32, 1)}, S in {1, 17, 128, 200}, D in
               {16, 64, 128}, plus the serve loop's (4, 12, 2, 24, 128),
@@ -47,6 +50,33 @@ Phases, in order; any failure exits non-zero:
               never on the card. The two routes' VectorStats must be
               equal, and the scale-1.0 dblp supersteps and CER hits equal
               the JAX reference's (those counts stop at the limit);
+  4b. superbatch and compat paths — on the same scale-1.0 dblp, a mix of
+              `random_query` (size, seed) pairs MIX: five size-4 queries
+              that must form one bucket, a size-8 query twice (a bucket
+              of one plan twice) and a size-3 query whose signature
+              nothing else shares (the sequential fallback), through
+              `Matcher.match_many(engine="vector", limit=1,000,000)` with
+              batch="auto" and "off". Counts equal between the modes and
+              to `cemr_match` (seed 9: 885,622; the size-3 query
+              203,920); batched_queries 5, 2 and 0; the buckets'
+              supersteps, leaf tiles, packed tiles, CER and failure hits
+              and recompiles equal the JAX reference's
+              (REFERENCE_MIX_STATS); readbacks + overlapped supersteps ==
+              supersteps. Launches counted over the batched run
+              (`PathCalls` also counts the BatchProgram closures): the
+              lane once per batched pair extend, expand_select once per
+              boundary (batched or not), tile_intersect once per pair
+              extend, the other entry points and the torch expand_select
+              never. Then the all_white union workload (its batched
+              union's peak memory) and `count(use_cer_buffer=False)` on
+              dblp size 8, human size 8 and dblp scale 0.02 (counts held,
+              bucketed tiles, dedup keys and dispatches against the
+              reference's REFERENCE_COMPAT_STATS, tile_intersect once per
+              pair compute or bucketed compute, expand_select once per
+              expansion). Printed, not asserted: the mix's wall and
+              queries per second batched and sequential, and the lane's
+              device time at the size-4 bucket's widest extend beside the
+              lane-free call on the same tables;
   5. LM path — qwen2-1.5b decode serving (`repro_torch.launch.serve`):
               the reduced model's four float32 steps on the card against
               the same steps on the CPU (logits within 1e-4, the same
@@ -76,7 +106,9 @@ Phases, in order; any failure exits non-zero:
               and the share of the bound. The bitmap kernels at the dblp
               size-8 plan's widest extend and at eu2005's widest shape
               (synthetic 6,138 x 246 tables, k = 2), warm and with the L2
-              flushed before each call. The launch floor: an empty
+              flushed before each call; tile_intersect's query lane at
+              the mix's size-4 bucket's widest extend beside the
+              lane-free call on the same tables. The launch floor: an empty
               `torch.cuda._sleep(0)` kernel back to back, and alone after
               an L2 flush;
   7. summary — the kernels line, the card, one JSON line of per-kernel
@@ -112,6 +144,30 @@ WORKLOADS = (("dblp", 1.0, 8), ("dblp", 1.0, 16), ("human", 1.0, 8),
 # options). They hold the kernels' bits where the clipped count cannot.
 REFERENCE_STATS = {("dblp", 1.0, 8): {"supersteps": 35},
                    ("dblp", 1.0, 16): {"supersteps": 37, "cer_hits": 6_927}}
+# The superbatch mix on dblp at scale 1.0: random_query(size, seed) pairs.
+# Queries 0-4 share one padded shape (one bucket), 5-6 are one plan twice,
+# 7's shape is its own (sequential fallback).
+MIX = ((4, 2), (4, 3), (4, 4), (4, 8), (4, 9), (8, 7), (8, 7), (3, 1))
+MIX_BUCKETS = ((0, 1, 2, 3, 4), (5, 6), (7,))
+# the mix's counts below the limit (cemr_match); the rest stop at it
+MIX_EXACT = {4: 885_622, 7: 203_920}
+# The JAX reference SuperbatchScheduler's counters on the mix's buckets
+# (default options, limit 1,000,000), and the reference compat loop's
+# (use_cer_buffer=False) on phase 4's queries: from
+# `python tests/torch_reference.py chip-constants` on the CPU.
+REFERENCE_MIX_STATS = {
+    (0, 1, 2, 3, 4): {"supersteps": 102, "leaf_tiles": 76,
+                      "packed_tiles": 0, "cer_hits": 296, "fail_hits": 0,
+                      "bucket_recompiles": 2},
+    (5, 6): {"supersteps": 97, "leaf_tiles": 46, "packed_tiles": 7,
+             "cer_hits": 782, "fail_hits": 0, "bucket_recompiles": 5}}
+REFERENCE_COMPAT_STATS = {
+    ("dblp", 1.0, 8): {"bucketed_tiles": 7, "dedup_unique": 154,
+                       "device_steps": 78},
+    ("human", 1.0, 8): {"bucketed_tiles": 3, "dedup_unique": 28,
+                        "device_steps": 17},
+    ("dblp", 0.02, 8): {"bucketed_tiles": 2, "dedup_unique": 13,
+                        "device_steps": 16}}
 # The route whose launch count each bitmap kernel reports (tile_intersect
 # runs on both routes)
 KERNEL_ROUTE = {"tile_intersect": "auto", "expand_select": "auto",
@@ -316,6 +372,42 @@ def check_new_kernels(bi, ref, dev) -> tuple[dict, int]:
     return errs, n
 
 
+def check_lane(bi, ref, dev) -> tuple[int, int]:
+    """tile_intersect with a query lane against its plain version, bit for
+    bit: Q in {1, 2, 5, 8} stacked queries, k in 1..4 tables, W in
+    {1, 33, 128}, T = 256 rows, query ids from -Q - 2 to Q + 2 and keys
+    from -45 to 44 (negative ones count from the end, past the end clamp,
+    each on its own axis), same-label clears on and off. Returns the
+    largest difference and the number of cases."""
+    gen = np.random.default_rng(9)
+    worst, n = 0, 0
+    for q in (1, 2, 5, 8):
+        for k in (1, 2, 3, 4):
+            for w in (1, 33, 128):
+                tabs = [torch.from_numpy(gen.integers(
+                    0, 2 ** 32, (q, int(gen.integers(1, 40)), w),
+                    dtype=np.uint32).view(np.int32)).to(dev)
+                    for _ in range(k)]
+                idx = torch.from_numpy(np.stack(
+                    [gen.integers(-q - 2, q + 3, TILE_ROWS)]
+                    + [gen.integers(-45, 45, TILE_ROWS) for _ in range(3)],
+                    1).astype(np.int32)).to(dev)
+                slots = [int(x) for x in gen.integers(1, 4, k)]
+                for clears in ([3, slots[0]], []):
+                    got = bi.tile_intersect(tabs, idx, slots, clears,
+                                            qid_slot=0)
+                    want = ref.tile_intersect_ref(tabs, idx, slots, clears,
+                                                  qid_slot=0)
+                    torch.cuda.synchronize()
+                    err = max_abs_err(got, want)
+                    worst, n = max(worst, err), n + 1
+                    if err:
+                        raise SystemExit(
+                            f"tile_intersect lane disagrees: Q={q} k={k} "
+                            f"W={w} clears={clears} max_abs_err={err}")
+    return worst, n
+
+
 def prepare(api, cemr_match) -> list:
     """Build the datasets, compile the queries and count each with the
     port's `cemr_match` (numpy, host). Returns one workload per query."""
@@ -353,12 +445,16 @@ class PathCalls:
     independently of the wrappers' launch counts: the engine's boundary
     expansions (`expand` closures), fused boundaries (`fused` closures)
     and pair-extend computes (`compute_r` closures of extends with
-    backward pairs), and every call of the torch `bitops.expand_select` on
-    a CUDA tensor. Engines must be built while it is active."""
+    backward pairs), the same of the superbatch's BatchProgram
+    (`batched_expand`, `batched_pair_compute`) when given the scheduler
+    module, and every call of the torch `bitops.expand_select` on a CUDA
+    tensor. Engines and programs must be built while it is active."""
 
-    def __init__(self, engine_mod, bitops_mod):
+    def __init__(self, engine_mod, bitops_mod, sched_mod=None):
         self.eng_cls, self.bitops = engine_mod.VectorEngine, bitops_mod
+        self.prog_cls = sched_mod.BatchProgram if sched_mod else None
         self.calls = {"expand": 0, "fused": 0, "pair_compute": 0,
+                      "batched_expand": 0, "batched_pair_compute": 0,
                       "torch_expand_select_on_card": 0}
 
     def _counted(self, key, fn):
@@ -399,12 +495,34 @@ class PathCalls:
         cls._make_expand_fused = make_fused
         cls._make_compute_parts = make_compute
         self.bitops.expand_select = torch_select
+        if self.prog_cls is not None:
+            prog = self.prog_cls
+            self.saved_prog = {name: getattr(prog, name) for name in
+                               ("_make_expand", "_make_compute_parts")}
+            saved_prog = self.saved_prog
+
+            def make_batched_expand(p, si):
+                return counted("batched_expand",
+                               saved_prog["_make_expand"](p, si))
+
+            def make_batched_compute(p, si):
+                compute_r, con = saved_prog["_make_compute_parts"](p, si)
+                stage = p._stages[si]
+                if stage[0] == "e" and stage[3]:
+                    compute_r = counted("batched_pair_compute", compute_r)
+                return compute_r, con
+
+            prog._make_expand = make_batched_expand
+            prog._make_compute_parts = make_batched_compute
         return self
 
     def __exit__(self, *exc):
         for name, fn in self.saved.items():
             setattr(self.eng_cls, name, fn)
         self.bitops.expand_select = self.saved_select
+        if self.prog_cls is not None:
+            for name, fn in self.saved_prog.items():
+                setattr(self.prog_cls, name, fn)
 
 
 def drive(bi, engine_mod, bitops_mod, work, intersect: str):
@@ -491,6 +609,248 @@ def check_runs(by_route: dict) -> None:
             raise SystemExit(f"{a['dataset']} scale {a['scale']} size "
                              f"{a['query_size']}: VectorStats differ "
                              f"between routes: {diff}")
+
+
+def mix_queries(ds) -> list:
+    return [ds.random_query(size=size, seed=seed) for size, seed in MIX]
+
+
+def drive_superbatch(api, bi, engine_mod, bitops_mod, sched_mod, ds,
+                     cemr_match) -> dict:
+    """The superbatch path: the MIX on `ds` through a fresh Matcher's
+    `match_many` with batch="auto" (program cache cleared, launch counts
+    set to 0 just before and read just after, the path's kernel work
+    counted by `PathCalls`), then batch="off", then both timed warm in the
+    order auto, off, off, auto, auto, off. Holds the counts, buckets,
+    stats and launches (see the module docstring); returns what it
+    measured."""
+    from repro_torch.core.plan import plan_shape_signature
+    m = api.Matcher(ds)
+    queries = mix_queries(ds)
+    want, sigs = [], []
+    for q in queries:
+        cq = m.compile(q)
+        want.append(cemr_match(q, ds.graph, limit=LIMIT,
+                               preprocessed=(cq.cs, cq.an)).count)
+        sigs.append(plan_shape_signature(cq.plan, tile_rows=TILE_ROWS))
+    for i, c in MIX_EXACT.items():
+        if want[i] != c:
+            raise SystemExit(f"mix query {MIX[i]}: cemr_match {want[i]}, "
+                             f"expected {c}")
+    groups: dict = {}
+    for i, sig in enumerate(sigs):
+        groups.setdefault(sig, []).append(i)
+    if sorted(map(tuple, groups.values())) != sorted(MIX_BUCKETS):
+        raise SystemExit(f"the mix's buckets are {list(groups.values())}, "
+                         f"expected {MIX_BUCKETS}")
+    sched_mod._PROGRAMS.clear()
+    with PathCalls(engine_mod, bitops_mod, sched_mod) as path:
+        bi.reset_launches()
+        t0 = time.perf_counter()
+        bat = m.match_many(queries, engine="vector", limit=LIMIT,
+                           batch="auto")
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in bi.WRAPPERS}
+        lane = bi.tile_intersect.lane_launches
+    calls = dict(path.calls)
+    seq = m.match_many(queries, engine="vector", limit=LIMIT, batch="off")
+    counts = {"auto": [o.count for o in bat], "off": [o.count for o in seq],
+              "cemr_match": want}
+    if not counts["auto"] == counts["off"] == want:
+        raise SystemExit(f"mix counts differ: {counts}")
+    buckets = []
+    for idx in MIX_BUCKETS:
+        st = bat[idx[0]].stats
+        if any(bat[i].stats is not st for i in idx):
+            raise SystemExit(f"bucket {idx} does not share one VectorStats")
+        if st.batched_queries != (len(idx) if len(idx) > 1 else 0):
+            raise SystemExit(f"bucket {idx}: batched_queries "
+                             f"{st.batched_queries}")
+        if st.readbacks + st.overlapped_supersteps != st.supersteps:
+            raise SystemExit(f"bucket {idx}: readbacks + "
+                             "overlapped_supersteps != supersteps")
+        for field, value in REFERENCE_MIX_STATS.get(idx, {}).items():
+            if getattr(st, field) != value:
+                raise SystemExit(f"bucket {idx}: {field} "
+                                 f"{getattr(st, field)} != the reference's "
+                                 f"{value}")
+        buckets.append({"queries": [MIX[i] for i in idx],
+                        "stats": dataclasses.asdict(st)})
+    want_launches = {
+        "tile_intersect": calls["pair_compute"]
+        + calls["batched_pair_compute"],
+        "expand_select": calls["expand"] + calls["batched_expand"],
+        "expand_intersect": 0, "bitmap_intersect": 0,
+        "fused_expand_intersect": 0}
+    if launches != want_launches or lane != calls["batched_pair_compute"] \
+            or not lane or not calls["batched_expand"] \
+            or calls["torch_expand_select_on_card"]:
+        raise SystemExit(f"superbatch launches {launches}, lane {lane}, "
+                         f"expected {want_launches} and the lane once per "
+                         f"batched pair extend (path calls {calls})")
+    walls = {"auto": [], "off": []}
+    for mode in ("auto", "off", "off", "auto", "auto", "off"):
+        t0 = time.perf_counter()
+        outs = m.match_many(queries, engine="vector", limit=LIMIT,
+                            batch=mode)
+        torch.cuda.synchronize()
+        walls[mode].append(time.perf_counter() - t0)
+        if [o.count for o in outs] != want:
+            raise SystemExit(f"mix counts changed on a warm {mode} run")
+    med = {mode: float(np.median(v)) for mode, v in walls.items()}
+    return {"queries": len(queries), "counts": counts, "buckets": buckets,
+            "launches": launches, "lane_launches": lane, "path_calls": calls,
+            "cold_auto_s": cold_s, "walls_s": walls, "median_s": med,
+            "queries_per_s": {mode: len(queries) / v
+                              for mode, v in med.items()},
+            "matcher": m, "queries_list": queries}
+
+
+def drive_union(api, graph_mod, cemr_match, dev) -> dict:
+    """The batched union stage on the card: the all_white workload of
+    tests/test_batch_differential.py (decompose boundaries and a
+    no-black-bwd union) through match_many auto and off, counts held
+    against cemr_match, with the batched run's peak device memory; then
+    `_union_rows_batched` alone at dblp's and eu2005's padded widths
+    (5 queries in a stack padded to 8, T = 256, sources of 4,096 and
+    8,192 rows, 128 and 256 words), its peak above the inputs."""
+    from repro_torch.core.scheduler import _union_rows_batched
+    data = graph_mod.synthetic_labeled_graph(180, 7.0, 2, seed=3)
+    q = graph_mod.random_walk_query(data, 6, seed=301)
+    m = api.Matcher(api.Dataset.from_graph(data))
+    want = cemr_match(q, data).count
+    opts = dict(engine="vector", tile_rows=32, limit=10 ** 9,
+                encoding="all_white")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    bat = m.match_many([q, q], batch="auto", **opts)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    seq = m.match_many([q, q], batch="off", **opts)
+    if not ([o.count for o in bat] == [o.count for o in seq] == [want] * 2
+            and bat[0].stats.batched_queries == 2):
+        raise SystemExit(f"union workload: batched {[o.count for o in bat]}"
+                         f", sequential {[o.count for o in seq]}, "
+                         f"cemr_match {want}")
+    gen = np.random.default_rng(4)
+    widths = {}
+    for name, (s, w) in {"dblp": (4096, 128), "eu2005": (8192, 256)}.items():
+        tables = torch.from_numpy(gen.integers(
+            0, 2 ** 32, (8, s, w), dtype=np.uint32).view(np.int32)).to(dev)
+        bmcol = torch.from_numpy(frontier_bits(
+            gen, TILE_ROWS, s // 32, "sparse").view(np.int32)).to(dev)
+        qid = torch.from_numpy(gen.integers(0, 5, TILE_ROWS).astype(
+            np.int32)).to(dev)
+        _union_rows_batched(tables, bmcol, qid, 5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        _union_rows_batched(tables, bmcol, qid, 5)
+        torch.cuda.synchronize()
+        widths[name] = {"S": s, "W": w, "Q": 8, "n_real": 5, "T": TILE_ROWS,
+                        "peak_bytes_above_inputs":
+                        torch.cuda.max_memory_allocated(dev) - before,
+                        "ms": median_ms(lambda: _union_rows_batched(
+                            tables, bmcol, qid, 5), reps=3, iters=3)}
+        del tables
+    torch.cuda.empty_cache()
+    return {"count": want, "batched_peak_bytes": peak, "widths": widths}
+
+
+def drive_compat(bi, engine_mod, bitops_mod, work) -> list:
+    """`count(use_cer_buffer=False)`, the stage-at-a-time compat loop, on
+    phase 4's dblp size 8, human size 8 and dblp scale 0.02 queries: counts
+    against cemr_match, bucketed tiles, dedup keys and dispatches against
+    the reference's, no failure-cache or readback stats, and, with the
+    launch counts set to 0 just before each count and read just after,
+    tile_intersect once per pair compute or bucketed compute, expand_select
+    once per expansion, nothing else."""
+    runs = []
+    for w in work:
+        key = (w["dataset"], w["scale"], w["query_size"])
+        if key not in REFERENCE_COMPAT_STATS:
+            continue
+        with PathCalls(engine_mod, bitops_mod) as path:
+            bi.reset_launches()
+            t0 = time.perf_counter()
+            out = w["matcher"].count(w["query"], engine="vector",
+                                     use_cer_buffer=False, limit=LIMIT)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in bi.WRAPPERS}
+        st = out.stats
+        if out.count != w["ref"]:
+            raise SystemExit(f"compat {key}: count {out.count} != "
+                             f"cemr_match {w['ref']}")
+        for field, value in REFERENCE_COMPAT_STATS[key].items():
+            if getattr(st, field) != value:
+                raise SystemExit(f"compat {key}: {field} "
+                                 f"{getattr(st, field)} != the reference's "
+                                 f"{value}")
+        if st.readbacks or st.supersteps or st.fail_hits or st.fail_inserts:
+            raise SystemExit(f"compat {key}: superstep or failure-cache "
+                             f"stats are not 0: {st}")
+        calls = path.calls
+        want = {"tile_intersect": calls["pair_compute"] + st.bucketed_tiles,
+                "expand_select": calls["expand"], "expand_intersect": 0,
+                "bitmap_intersect": 0, "fused_expand_intersect": 0}
+        if launches != want or not launches["tile_intersect"] \
+                or not launches["expand_select"] \
+                or calls["torch_expand_select_on_card"]:
+            raise SystemExit(f"compat {key}: launches {launches}, expected "
+                             f"{want} (path calls {calls})")
+        runs.append({"workload": list(key), "count": out.count,
+                     "wall_s": wall, "launches": launches,
+                     "stats": dataclasses.asdict(st)})
+    return runs
+
+
+def time_lane(bi, ref, sb, dev) -> dict:
+    """The lane at the size-4 bucket's widest pair extend (most tables x
+    padded words): its stacked tables, a tile of T = 256 rows whose query
+    ids cover the bucket's queries and whose keys are random within each
+    padded table; beside the lane-free call on the first query's slice of
+    the same tables with the same keys, and the plain version. Warm and
+    with the L2 flushed; bound by bytes."""
+    prog, data = sb.program, sb.data
+    stages = prog._stages
+    si = max((i for i, st in enumerate(stages) if st[0] == "e" and st[3]),
+             key=lambda i: (len(stages[i][3]) * prog.widths[stages[i][1]], i))
+    v, bk, same = stages[si][1], stages[si][3], stages[si][6]
+    tabs = [data["tables"][f"{u}:{v}"] for (_, u) in bk]
+    n_cols = 2 + max([s for s, _ in bk] + list(same))
+    gen = np.random.default_rng(6)
+    s_min = min(t.shape[1] for t in tabs)
+    cols = [gen.integers(0, sb.nq, TILE_ROWS)] + [
+        gen.integers(0, s_min, TILE_ROWS) for _ in range(n_cols - 1)]
+    idx = torch.from_numpy(np.stack(cols, 1).astype(np.int32)).to(dev)
+    slots = [s + 1 for s, _ in bk]
+    clears = [c + 1 for c in same]
+    one = [t[0] for t in tabs]
+    lane = lambda: bi.tile_intersect(tabs, idx, slots, clears, qid_slot=0)
+    plain = lambda: ref.tile_intersect_ref(tabs, idx, slots, clears,
+                                           qid_slot=0)
+    nolane = lambda: bi.tile_intersect(one, idx, slots, clears)
+    err = max_abs_err(lane(), plain())
+    if err:
+        raise SystemExit("the lane disagrees at the bucket's widest extend")
+    w = tabs[0].shape[2]
+    rows = sum(int(torch.unique(idx[:, 0].long() * t.shape[1]
+                                + idx[:, s].long()).numel())
+               for t, s in zip(tabs, slots))
+    nbytes = (TILE_ROWS * (1 + len(set(slots)) + len(set(clears))) * 4
+              + rows * w * 4 + TILE_ROWS * w * 4 + TILE_ROWS * 4)
+    flush = torch.empty(100 * 2 ** 20, dtype=torch.int8, device=dev)
+    out = {"stage": si, "k": len(tabs), "W": w, "Q": tabs[0].shape[0],
+           "S": [t.shape[1] for t in tabs], "T": TILE_ROWS,
+           "ms": median_ms(lane), "flushed_ms": flushed_ms(lane, flush),
+           "no_lane_ms": median_ms(nolane),
+           "no_lane_flushed_ms": flushed_ms(nolane, flush),
+           "plain_ms": median_ms(plain), "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "max_abs_err": err}
+    return out
 
 
 def build_all(build, names) -> dict:
@@ -1084,6 +1444,8 @@ def main() -> int:
     from repro_torch.core.ref_engine import cemr_match
     from repro_torch.core import bitops as bitops_mod
     from repro_torch.core import engine as engine_mod
+    from repro_torch.core import graph as graph_mod
+    from repro_torch.core import scheduler as sched_mod
     from repro_torch.kernels import bitmap_intersect as bi
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import ops as kops
@@ -1122,8 +1484,11 @@ def main() -> int:
     errs = check_kernels(bi, ref, dev)
     new_errs, n_new = check_new_kernels(bi, ref, dev)
     errs.update(new_errs)
+    lane_err, n_lane = check_lane(bi, ref, dev)
+    errs["tile_intersect"] = max(errs["tile_intersect"], lane_err)
     print(f"bitmap kernels agree with their plain versions bit for bit, "
-          f"{n_new} cases of the new entry points "
+          f"{n_new} cases of the new entry points, {n_lane} of "
+          f"tile_intersect's query lane "
           f"({time.perf_counter() - t0:.3f} s)", flush=True)
     t0 = time.perf_counter()
     fd_errs, n_fd = check_flash_decode(fd, ref, dev)
@@ -1144,6 +1509,37 @@ def main() -> int:
               f"path calls {calls}", flush=True)
         check_launches(route, launches[route], calls)
     check_runs(by_route)
+
+    t0 = time.perf_counter()
+    dblp = next(w["matcher"].dataset for w in work
+                if (w["dataset"], w["scale"]) == ("dblp", 1.0))
+    sb_res = drive_superbatch(api, bi, engine_mod, bitops_mod, sched_mod,
+                              dblp, cemr_match)
+    print("superbatch " + json.dumps(
+        {k: v for k, v in sb_res.items()
+         if k not in ("matcher", "queries_list")}), flush=True)
+    print(f"superbatch mix on {card}: {sb_res['queries']} queries, "
+          f"median wall batch=auto {sb_res['median_s']['auto']:.4f} s "
+          f"({sb_res['queries_per_s']['auto']:.2f} queries/s), batch=off "
+          f"{sb_res['median_s']['off']:.4f} s "
+          f"({sb_res['queries_per_s']['off']:.2f} queries/s); launches "
+          f"{sb_res['launches']}, lane {sb_res['lane_launches']}, path "
+          f"calls {sb_res['path_calls']} "
+          f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    launches["superbatch"] = sb_res["launches"]
+    t0 = time.perf_counter()
+    union_res = drive_union(api, graph_mod, cemr_match, dev)
+    print(f"union workload on {card}: " + json.dumps(union_res) +
+          f" ({time.perf_counter() - t0:.3f} s)", flush=True)
+    t0 = time.perf_counter()
+    compat_runs = drive_compat(bi, engine_mod, bitops_mod, work)
+    for r in compat_runs:
+        print("compat " + json.dumps(r), flush=True)
+    launches["compat"] = {name: sum(r["launches"][name] for r in compat_runs)
+                          for name in compat_runs[0]["launches"]}
+    print(f"compat route: {len(compat_runs)} counts in "
+          f"{time.perf_counter() - t0:.3f} s, launches {launches['compat']}",
+          flush=True)
 
     t0 = time.perf_counter()
     worst = check_lm_reduced(build_bundle, dev)
@@ -1175,6 +1571,15 @@ def main() -> int:
           f"{floors['warm']:.6f} ms, alone after an L2 flush "
           f"{floors['flushed']:.6f} ms", flush=True)
     kernels = time_kernels(bi, ref, shapes_cq, dev, launches, errs, floors)
+    m_mix, mix = sb_res["matcher"], sb_res["queries_list"]
+    lane = time_lane(bi, ref, sched_mod.SuperbatchScheduler(
+        [m_mix.compile(mix[i]).plan for i in MIX_BUCKETS[0]], device=dev),
+        dev)
+    print(f"time tile_intersect lane on {card}: " + json.dumps(lane),
+          flush=True)
+    ti = next(k for k in kernels if k["name"] == "tile_intersect")
+    ti["lane"] = lane
+    ti["lane_launches"] = sb_res["lane_launches"]
     kernels.append(time_flash_decode(
         fd, ref, dev, d32k,
         {path: {"calls": res["launches"],

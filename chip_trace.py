@@ -1,13 +1,18 @@
 """Where the time of the port's paths goes, on one CUDA card.
 
-    python3 chip_trace.py [--matcher-only] [--src DIR]
+    python3 chip_trace.py [--matcher-only] [--superbatch] [--src DIR]
 
 Runs `repro_torch.api.Matcher.count(engine="vector")` on synthetic dblp at
 scale 1.0 with `random_query(size=8, seed=7)`, once to warm up and then
 under `torch.profiler` for each `intersect` route, and prints beside the
 window's numbers the median wall of 5 unprofiled counts, the launches a
 superstep and the bitmap kernels' launches (each wrapper's count over
-the profiled count). `--src DIR`
+the profiled count). `--superbatch` profiles instead chip_smoke.py's
+superbatch mix on the same dataset (`MIX`: eight queries in two buckets
+and a singleton) through `Matcher.match_many` with batch="auto" and with
+batch="off", each warm, beside the median wall of 3 unprofiled drains:
+launches a superstep (over every superstep of the drain, batched or
+not), the device-busy share and queries per second. `--src DIR`
 imports `repro_torch` from DIR instead of this checkout's `src/` (to
 profile another tree in the same call); `--matcher-only` skips the LM
 windows. Then, unless skipped, one full-width
@@ -86,11 +91,45 @@ def trace_lm(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def trace_superbatch(api, bi, ds, card: str, src: str) -> None:
+    from chip_smoke import MIX
+    queries = [ds.random_query(size=size, seed=seed) for size, seed in MIX]
+    m = api.Matcher(ds)
+    for batch in ("auto", "off"):
+        m.match_many(queries, engine="vector", batch=batch)     # warm
+        walls = []
+        for _ in range(3):                   # unprofiled, synchronised
+            t0 = time.perf_counter()
+            m.match_many(queries, engine="vector", batch=batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        bi.reset_launches()
+        outs, stats = profiled(lambda: m.match_many(
+            queries, engine="vector", batch=batch))
+        distinct = {id(o.stats): o.stats for o in outs}.values()
+        steps = max(sum(st.supersteps for st in distinct), 1)
+        wall = sorted(walls)[len(walls) // 2]
+        print(json.dumps({
+            "card": card, "path": "superbatch mix", "src": src,
+            "batch": batch, "queries": len(queries),
+            "counts": [o.count for o in outs], "supersteps": steps,
+            "batched_queries": [st.batched_queries for st in distinct],
+            "drain_ms_unprofiled": wall,
+            "drain_ms_unprofiled_all": walls,
+            "queries_per_s_unprofiled": len(queries) / (wall / 1e3),
+            "launches_per_superstep": stats["kernel_launches"] / steps,
+            "bitmap_launches": {fn.__name__: fn.launches
+                                for fn in bi.WRAPPERS},
+            "lane_launches": bi.tile_intersect.lane_launches,
+            **stats}), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--src", default=str(Path(__file__).resolve().parent
                                              / "src"))
     parser.add_argument("--matcher-only", action="store_true")
+    parser.add_argument("--superbatch", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_trace: no CUDA device", file=sys.stderr)
@@ -104,6 +143,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     ds = api.Dataset.synthetic("dblp", scale=1.0)
+    if args.superbatch:
+        trace_superbatch(api, bi, ds, card, args.src)
+        return 0
     q = ds.random_query(size=8, seed=7)
     m = api.Matcher(ds)
     for intersect in ("auto", "fused"):

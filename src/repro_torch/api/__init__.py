@@ -7,16 +7,18 @@
     out = m.count(query)                          # MatchOutcome
     for emb in m.stream(query, limit=10): ...     # explicit embeddings
     print(m.explain(query))                       # order/coloring/plan
+    outs = m.match_many(queries)                  # cross-query superbatch
 """
 from .dataset import Dataset
 from .matcher import (AUTO_VECTOR_MIN_ROWS, CacheInfo, CompiledQuery,
                       Matcher, MatchOutcome)
-from .options import (ENCODINGS, ENGINES, INTERSECT_MODES, ORDER_HEURISTICS,
-                      MatchOptions)
+from .options import (BATCH_MODES, ENCODINGS, ENGINES, INTERSECT_MODES,
+                      ORDER_HEURISTICS, MatchOptions)
 from .signature import graph_signature
 
 __all__ = [
     "Dataset", "Matcher", "MatchOptions", "MatchOutcome", "CompiledQuery",
     "CacheInfo", "graph_signature", "AUTO_VECTOR_MIN_ROWS",
     "ENGINES", "ENCODINGS", "ORDER_HEURISTICS", "INTERSECT_MODES",
+    "BATCH_MODES",
 ]

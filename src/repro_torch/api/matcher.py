@@ -1,14 +1,16 @@
 """Matcher: the session-style facade over both CEMR engines.
 
-Torch port of `repro.api.Matcher`'s single-query surface. One Matcher serves
-many queries against one Dataset on one device:
+Torch port of `repro.api.Matcher`. One Matcher serves many queries against
+one Dataset on one device:
 
   * `compile(query)` — filtering + ordering + encoding + static analysis,
     cached by canonical query signature (LRU-bounded). The vector engine's
     MatchingPlan is built lazily inside the cached CompiledQuery and its
     tables are uploaded to the device once per engine configuration.
-  * `count` / `stream` — execution, returning one result type
-    (`MatchOutcome`) regardless of engine.
+  * `count` / `stream` / `match_many` — execution, returning one result
+    type (`MatchOutcome`) regardless of engine; `match_many(batch="auto")`
+    drains vector-engine queries that share a padded plan shape through
+    one cross-query superbatch.
   * `explain` — order, coloring, per-level plan stages, candidate sizes.
 
 The device is the card (`cuda`) unless the caller passes `device="cpu"`;
@@ -20,7 +22,9 @@ Engine auto-selection (`engine="auto"`), as in the reference:
   2. total candidate rows Σ|C(u)| < AUTO_VECTOR_MIN_ROWS → "ref";
   3. otherwise → "vector".
 
-Not ported yet: `match_many`'s superbatch, `count_delta`, `tenant_view`.
+Not ported yet: `count_delta` (and the exact-count bases it keeps, which
+`count` and `match_many` seed in the reference), `tenant_view`, and the
+sharded superbatch (`mesh` other than None or 1 raises in MatchOptions).
 """
 from __future__ import annotations
 
@@ -33,15 +37,15 @@ from ..core.encoding import BLACK, QueryAnalysis
 from ..core.engine import VectorEngine, VectorStats
 from ..core.filtering import CandidateSpace
 from ..core.graph import Graph
-from ..core.plan import build_plan
+from ..core.plan import build_plan, plan_shape_signature
 from ..core.ref_engine import MatchStats, cemr_match, preprocess
 from ..device import resolve_device
 from .dataset import Dataset
-from .options import MatchOptions
+from .options import BATCH_MODES, MatchOptions
 from .signature import graph_signature
 
 __all__ = ["Matcher", "CompiledQuery", "MatchOutcome", "CacheInfo",
-           "AUTO_VECTOR_MIN_ROWS"]
+           "AUTO_VECTOR_MIN_ROWS", "BATCH_MODES"]
 
 # auto-heuristic threshold: below this many total candidate rows the DFS
 # engine's low fixed overhead wins; above it the tile engine amortizes.
@@ -112,7 +116,8 @@ class CompiledQuery:
         the given runtime knobs; engines are keyed by every knob that
         changes the built step functions."""
         key = (opts.tile_rows, opts.use_cv, opts.use_dedup,
-               opts.cer_buffer_slots, opts.use_failure_cache,
+               opts.use_cer_buffer, opts.cer_buffer_slots,
+               opts.use_failure_cache,
                opts.failure_cache_slots, opts.pack_tiles, opts.overlap,
                opts.intersect, id(intersect_fn), str(device))
         eng = self._engines.get(key)
@@ -120,6 +125,7 @@ class CompiledQuery:
             eng = VectorEngine(self.cs, self.an, device=device,
                                tile_rows=opts.tile_rows,
                                use_cv=opts.use_cv, use_dedup=opts.use_dedup,
+                               use_cer_buffer=opts.use_cer_buffer,
                                cer_buffer_slots=opts.cer_buffer_slots,
                                use_failure_cache=opts.use_failure_cache,
                                failure_cache_slots=opts.failure_cache_slots,
@@ -212,6 +218,12 @@ class Matcher:
         self._hits = 0
         self._misses = 0
         self._intersect_fn = intersect_fn
+        # warm SuperbatchScheduler per (signature, plan identity, knobs):
+        # repeated match_many workloads reuse stacked tables and CER
+        # buffers. Entries hold their plans strongly, so ids stay
+        # unambiguous.
+        self._batch_cache: OrderedDict[tuple, object] = OrderedDict()
+        self._batch_cache_max = 8
 
     # ------------------------------------------------------------------ cache
     def cache_info(self) -> CacheInfo:
@@ -220,8 +232,12 @@ class Matcher:
                          size=len(self._cache), maxsize=self._maxsize)
 
     def clear_cache(self) -> None:
-        """Drop every cached CompiledQuery (hit/miss counters are kept)."""
+        """Drop every cached CompiledQuery and warm superbatch scheduler
+        (hit/miss counters are kept)."""
         self._cache.clear()
+        # warm superbatch schedulers pin their bucket's plans plus stacked
+        # device tables; clearing the plan cache must release those too
+        self._batch_cache.clear()
 
     def _resolve_options(self, options: MatchOptions | None,
                          overrides: dict) -> MatchOptions:
@@ -328,3 +344,100 @@ class Matcher:
         order, black/white coloring, candidate sizes, plan stages."""
         opts = self._resolve_options(options, overrides)
         return self.compile(query, opts).explain(engine=opts.engine)
+
+    def match_many(self, queries: list[Graph],
+                   options: MatchOptions | None = None, *,
+                   batch: str = "auto",
+                   **overrides) -> list[MatchOutcome]:
+        """Batch API: match each query, sharing the plan cache (duplicate
+        queries in the batch compile once).
+
+        `batch="auto"` additionally drains vector-engine queries through
+        cross-query superbatches: plans are bucketed by padded shape
+        signature (`core.plan.plan_shape_signature`) and every bucket of
+        two or more queries advances through shared supersteps with a
+        query-id lane. Per-query counts are identical to the sequential
+        path; `stats` is the bucket's shared VectorStats, `elapsed_s` the
+        bucket wall time amortized per query, and `budget` pools across
+        the bucket (N queries share N * budget dispatches; a capped bucket
+        flags every query timed_out). Ref-engine, empty, and
+        singleton-bucket queries fall back to the sequential path, as does
+        the whole call under `materialize=True`, a custom intersect_fn, or
+        a forced intersect route (`intersect != "auto"`). On the batched
+        path `use_cer_buffer=False` disables the CER ring buffer but still
+        runs fused supersteps (there is no batched compat loop).
+        `batch="off"` forces sequential execution."""
+        if batch not in BATCH_MODES:
+            raise ValueError(f"batch must be one of {BATCH_MODES}, "
+                             f"got {batch!r}")
+        opts = self._resolve_options(options, overrides)
+        if (batch == "off" or len(queries) < 2 or opts.materialize
+                or self._intersect_fn is not None
+                or opts.intersect != "auto"):
+            return [self.count(q, opts) for q in queries]
+        return self._match_many_batched(queries, opts)
+
+    def _match_many_batched(self, queries: list[Graph],
+                            opts: MatchOptions) -> list[MatchOutcome]:
+        outcomes: list[MatchOutcome | None] = [None] * len(queries)
+        buckets: OrderedDict[tuple, list] = OrderedDict()
+        for i, q in enumerate(queries):
+            hits_before = self._hits
+            t0 = time.perf_counter()
+            cq = self.compile(q, opts)
+            cached = self._hits > hits_before
+            if cq.empty or cq.resolve_engine(opts.engine) != "vector":
+                outcomes[i] = self.count(q, opts)    # sequential fallback
+                continue
+            plan = cq.plan                # built inside the compile_s window
+            compile_s = time.perf_counter() - t0
+            sig = plan_shape_signature(plan, tile_rows=opts.tile_rows)
+            buckets.setdefault(sig, []).append((i, cq, compile_s, cached))
+        for sig, items in buckets.items():
+            if len(items) < 2:            # no cross-query work to share
+                i = items[0][0]
+                outcomes[i] = self.count(queries[i], opts)
+                continue
+            sched = self._superbatch_for(sig, [it[1] for it in items], opts)
+            t0 = time.perf_counter()
+            # the bucket shares its dispatches, so per-query budgets pool:
+            # a bucket of N queries gets N * budget total device steps
+            budget = (opts.budget * len(items)
+                      if opts.budget is not None else None)
+            counts, stats, timed_out = sched.run(limit=opts.limit,
+                                                 max_steps=budget)
+            per_query_s = (time.perf_counter() - t0) / len(items)
+            for (i, _cq, compile_s, cached), c in zip(items, counts):
+                outcomes[i] = MatchOutcome(
+                    count=c, engine="vector", elapsed_s=per_query_s,
+                    timed_out=timed_out, stats=stats, plan_cached=cached,
+                    compile_s=compile_s,
+                    graph_version=self.dataset.graph_version,
+                    engine_requested=opts.engine)
+        return outcomes
+
+    def _superbatch_for(self, sig: tuple, cqs: list, opts: MatchOptions):
+        """Build (or reuse) the warm superbatch scheduler for one shape
+        bucket."""
+        from ..core.scheduler import SuperbatchScheduler
+        key = (sig, tuple(id(cq.plan) for cq in cqs), opts.use_cv,
+               opts.use_dedup, opts.use_cer_buffer, opts.cer_buffer_slots,
+               opts.use_failure_cache, opts.failure_cache_slots,
+               opts.pack_tiles, opts.overlap)
+        sched = self._batch_cache.get(key)
+        if sched is None:
+            sched = SuperbatchScheduler(
+                [cq.plan for cq in cqs], device=self.device,
+                tile_rows=opts.tile_rows, use_cv=opts.use_cv,
+                use_dedup=opts.use_dedup,
+                use_cer_buffer=opts.use_cer_buffer,
+                cer_buffer_slots=opts.cer_buffer_slots,
+                use_failure_cache=opts.use_failure_cache,
+                failure_cache_slots=opts.failure_cache_slots,
+                pack_tiles=opts.pack_tiles, overlap=opts.overlap)
+            self._batch_cache[key] = sched
+            while len(self._batch_cache) > self._batch_cache_max:
+                self._batch_cache.popitem(last=False)
+        else:
+            self._batch_cache.move_to_end(key)
+        return sched

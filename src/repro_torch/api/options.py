@@ -1,11 +1,10 @@
 """MatchOptions: one validated, frozen configuration object for both engines.
 
-Copy of `repro.api.MatchOptions` with every field kept. Values this package
-does not run yet raise NotImplementedError: a `mesh` other than None or 1
-(sharded enumeration) and `use_cer_buffer=False` (the stage-at-a-time
-compat loop). Being frozen and data-only, an options instance is hashable
-and safely shareable between a Matcher, its plan cache keys, and per-call
-overrides.
+Copy of `repro.api.MatchOptions` with every field kept. The one value this
+package does not run yet raises NotImplementedError: a `mesh` other than
+None or 1 (sharded enumeration). Being frozen and data-only, an options
+instance is hashable and safely shareable between a Matcher, its plan cache
+keys, and per-call overrides.
 """
 from __future__ import annotations
 
@@ -14,11 +13,14 @@ import dataclasses
 from ..core.plan import INTERSECT_MODES
 
 __all__ = ["MatchOptions", "ENGINES", "ENCODINGS", "ORDER_HEURISTICS",
-           "INTERSECT_MODES"]
+           "INTERSECT_MODES", "BATCH_MODES"]
 
 ENGINES = ("ref", "vector", "auto")
 ENCODINGS = ("cost", "all_black", "all_white", "case12")
 ORDER_HEURISTICS = ("cemr", "ri", "gql")
+# Matcher.match_many execution modes: "auto" drains vector-engine queries
+# through cross-query superbatches; "off" runs them one by one.
+BATCH_MODES = ("auto", "off")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +40,10 @@ class MatchOptions:
     use_fs          : failing-set backjumping (ref engine only).
     use_dedup       : brother-embedding dedup / CER (vector engine only).
     use_cer_buffer  : fused supersteps with the cross-tile CER ring buffer
-                      (vector engine). False (the reference's stage-at-a-
-                      time compat loop) is not ported: NotImplementedError.
+                      (vector engine). False runs the stage-at-a-time
+                      compat loop (with its per-tile bucketed CER when
+                      use_dedup); in `match_many`'s superbatch it turns
+                      the CER ring buffer off and keeps fused supersteps.
     cer_buffer_slots: ring-buffer capacity per CER-enabled stage.
     use_failure_cache: failure-reuse negative cache (vector fused path and
                       superbatch): ring buffer of failed extension read-sets
@@ -138,10 +142,6 @@ class MatchOptions:
             raise NotImplementedError(
                 f"mesh={self.mesh!r}: sharded enumeration is not ported to "
                 f"repro_torch yet; use mesh=None")
-        if not self.use_cer_buffer:
-            raise NotImplementedError(
-                "use_cer_buffer=False selects the stage-at-a-time compat "
-                "loop, which is not ported to repro_torch yet")
         if not isinstance(self.limit, int) or self.limit < 1:
             raise ValueError(f"limit must be a positive int, "
                              f"got {self.limit!r}")

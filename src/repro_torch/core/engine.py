@@ -23,9 +23,11 @@ Torch port of `repro.core.engine` (the TPU-native tile engine):
     inclusion-exclusion.
 
 This module owns the *static* side: the stage plan and the per-stage
-compute / expand closures. The runtime — the superstep loop, frontier
-compaction, the CER and failure buffers, the leaf reduction — lives in
-scheduler.py; `VectorEngine.run()` delegates to it.
+compute / expand closures, and the stage-at-a-time compat loop's cached
+per-primitive callables (`_compute_fn`, `_expand_fn`, `_leaf_fn`,
+`_dedup_fn`, `_bucket_compute_fn`). The runtime — the superstep loop,
+frontier compaction, the CER and failure buffers, the leaf reduction, the
+compat loop — lives in scheduler.py; `VectorEngine.run()` delegates to it.
 """
 from __future__ import annotations
 
@@ -49,9 +51,9 @@ __all__ = ["VectorMatchResult", "VectorStats", "VectorEngine",
 class VectorStats:
     """Counters for one vector-engine run; the same fields as
     `repro.core.engine.VectorStats` (docs/engine.md has the glossary).
-    `device_steps` counts host dispatches (one per superstep / merge).
-    Fields of paths this package does not run (superbatch, sharding, the
-    compat loop) stay 0."""
+    `device_steps` counts host dispatches (one per superstep / merge, or
+    per primitive in the compat loop). The sharding fields stay 0: this
+    package does not shard."""
 
     device_steps: int = 0
     supersteps: int = 0
@@ -129,6 +131,33 @@ def _union_rows(table, bmcol):
     return (hit << shifts[None, None, :]).sum(dim=2, dtype=torch.int32)
 
 
+def make_leaf_terms(singles, groups):
+    """tile -> (T, n_terms) int32 popcount terms for leaf counting: the BM
+    columns `singles`, then per same-label group its inclusion-exclusion
+    terms."""
+    singles = list(singles)
+    groups = [list(g) for g in groups]
+    pc = bitops.row_popcount
+
+    def leaf(tile):
+        bm = tile["bm"]
+        terms = [pc(bm[u]) for u in singles]
+        for g in groups:
+            if len(g) == 2:
+                a, b = bm[g[0]], bm[g[1]]
+                terms += [pc(a), pc(b), pc(a & b)]
+            else:  # len 3 (encoder cap)
+                a, b, c = bm[g[0]], bm[g[1]], bm[g[2]]
+                terms += [pc(a), pc(b), pc(c), pc(a & b), pc(a & c),
+                          pc(b & c), pc(a & b & c)]
+        if terms:
+            return torch.stack(terms, dim=1)
+        return torch.zeros((tile["alive"].shape[0], 0), dtype=torch.int32,
+                           device=tile["alive"].device)
+
+    return leaf
+
+
 def _uses_kernels(intersect: str) -> bool:
     """Whether the `intersect` knob routes the extension computes through
     the bitmap kernels' wrappers (the CUDA kernels on the card, their plain
@@ -150,7 +179,7 @@ class VectorEngine:
                  device, tile_rows: int = 256, use_cv: bool = True,
                  use_dedup: bool = True, intersect_fn=None,
                  plan: MatchingPlan | None = None, intersect: str = "auto",
-                 cer_buffer_slots: int = 256,
+                 use_cer_buffer: bool = True, cer_buffer_slots: int = 256,
                  use_failure_cache: bool = True,
                  failure_cache_slots: int = 64,
                  pack_tiles: bool = True, overlap: bool = True):
@@ -160,6 +189,8 @@ class VectorEngine:
         self.t = tile_rows
         self.use_cv = use_cv
         self.use_dedup = use_dedup
+        # False selects the stage-at-a-time compat loop (scheduler.py)
+        self.use_cer_buffer = use_cer_buffer
         self.cer_buffer_slots = cer_buffer_slots
         self.use_failure_cache = use_failure_cache
         self.failure_cache_slots = failure_cache_slots
@@ -177,6 +208,7 @@ class VectorEngine:
         self.stats = VectorStats()
         self._stages = self._build_stages()
         self._scheduler = None
+        self._fns: dict = {}               # the compat loop's callables
 
     # ------------------------------------------------------------- stage plan
     def _build_stages(self):
@@ -366,30 +398,122 @@ class VectorEngine:
         return fused
 
     def _make_leaf_terms(self):
-        """tile -> (T, n_terms) int32 popcount terms for leaf counting
-        (singles, then per-group inclusion-exclusion terms)."""
-        plan = self.plan
-        singles = list(plan.leaf_singles)
-        groups = [list(g) for g in plan.leaf_groups]
-        pc = bitops.row_popcount
+        """tile -> (T, n_terms) int32 popcount terms for leaf counting."""
+        return make_leaf_terms(self.plan.leaf_singles, self.plan.leaf_groups)
 
-        def leaf(tile):
-            bm = tile["bm"]
-            terms = [pc(bm[u]) for u in singles]
-            for g in groups:
-                if len(g) == 2:
-                    a, b = bm[g[0]], bm[g[1]]
-                    terms += [pc(a), pc(b), pc(a & b)]
-                else:  # len 3 (encoder cap)
-                    a, b, c = bm[g[0]], bm[g[1]], bm[g[2]]
-                    terms += [pc(a), pc(b), pc(c), pc(a & b), pc(a & c),
-                              pc(b & c), pc(a & b & c)]
-            if terms:
-                return torch.stack(terms, dim=1)
-            return torch.zeros((tile["alive"].shape[0], 0), dtype=torch.int32,
-                               device=tile["alive"].device)
+    # ------------------------------------------------- compat-loop callables
+    # The stage-at-a-time loop (scheduler.TileScheduler._run_tiles) calls one
+    # of these per dispatch. The reference caches a `jax.jit` of each; here
+    # the plain closure is cached under the same key.
+    def _cached(self, key, make):
+        fn = self._fns.get(key)
+        if fn is None:
+            fn = self._fns[key] = make()
+        return fn
 
-        return leaf
+    def _compute_fn(self, si: int):
+        """compute(tile, tables, masks) -> (r, ok): stage `si`'s extension
+        (through `tile_intersect` on a kernel route) and its prune."""
+        def make():
+            compute_r, con = self._make_compute_parts(si)
+
+            def compute(tile, tables, masks):
+                r, pop = compute_r(tile, tables, masks)
+                r, _, ok = self.finish_compute(tile, r, pop, con)
+                return r, ok
+
+            return compute
+
+        return self._cached(("compute", si), make)
+
+    def _expand_fn(self, si: int):
+        """expand(tile, r, start, tables) -> (child tile, total)."""
+        return self._cached(("expand", si), lambda: self._make_expand(si))
+
+    def _leaf_fn(self):
+        """leaf(tile) -> (terms (T, n) int32, alive (T,) bool)."""
+        def make():
+            leaf_terms = self._make_leaf_terms()
+            return lambda tile: (leaf_terms(tile), tile["alive"])
+
+        return self._cached(("leaf",), make)
+
+    def _dedup_fn(self, si: int):
+        """Brother-embedding analysis (vectorized CER): group rows by the
+        extension read-set columns. Returns (n_unique, rep_rows, group_of):
+        rep_rows[g] = row index of group g's representative; group_of[t] =
+        group id of row t (undefined for dead rows). The reference's
+        `lexsort((cols[::-1]..., ~alive))` is one stable sort per key, least
+        significant first: alive rows first, then by the columns in order."""
+        def make():
+            slots = list(self._stages[si][1].dedup_slots)
+
+            def uniq(tile):
+                alive = tile["alive"]
+                t = alive.shape[0]
+                cols = [tile["idx"][:, s] for s in slots]
+                order = torch.arange(t, device=alive.device)
+                for key in cols[::-1] + [(~alive).to(torch.int32)]:
+                    order = order[torch.sort(key[order], stable=True).indices]
+                diff = torch.zeros(t, dtype=torch.bool, device=alive.device)
+                diff[0] = True
+                for c in cols:
+                    cs = c[order]
+                    diff[1:] |= cs[1:] != cs[:-1]
+                gid = torch.cumsum(diff.to(torch.int32), dim=0,
+                                   dtype=torch.int32) - 1
+                n_unique = (diff & alive[order]).sum(dtype=torch.int32)
+                rep = torch.where(diff, order, 0).to(torch.int32)
+                rep_rows = torch.zeros(t, dtype=torch.int32,
+                                       device=alive.device).scatter_reduce(
+                    0, gid.long(), rep, "amax")
+                group_of = torch.zeros(t, dtype=torch.int32,
+                                       device=alive.device)
+                group_of[order] = gid
+                return n_unique, rep_rows, group_of
+
+            return uniq
+
+        return self._cached(("dedup", si), make)
+
+    def _bucket_compute_fn(self, si: int, bucket: int):
+        """CER-bucketed extension: run the gather+AND on `bucket` unique
+        representative rows instead of the full tile, then broadcast R back
+        through group ids — one extension computation per brother-embedding
+        class. On a kernel route the representatives' AND is one
+        `tile_intersect` launch with no clears: the same-label clears run
+        after the broadcast, on the full tile's columns, as the reference
+        has them."""
+        def make():
+            op: LevelOp = self._stages[si][1]
+            keys = [f"{u}:{op.vertex}" for (_, u) in op.bk_pairs]
+            slots = tuple(s for (s, _) in op.bk_pairs)
+            con = max(op.con_threshold, 1) if self.use_cv else 1
+            tile_kernel = self.kernels and self.intersect_fn is None
+
+            def compute(tile, rep_rows, group_of, tables):
+                reps = rep_rows[:bucket].long()
+                idx_b = tile["idx"][reps]
+                alive_b = tile["alive"][reps]
+                if tile_kernel:
+                    r, _ = _kernels.tile_intersect(
+                        [tables[k] for k in keys], idx_b, slots)
+                else:
+                    r = None
+                    for k, s in zip(keys, slots):
+                        rows = tables[k][idx_b[:, s].long()]
+                        r = rows if r is None else (r & rows)
+                r = torch.where(alive_b[:, None], r, 0)
+                r_full = r[torch.clamp(group_of, 0, bucket - 1).long()]
+                for s in op.same_label_idx_slots:
+                    r_full = bitops.clear_bit_rows(r_full, tile["idx"][:, s])
+                pop = bitops.row_popcount(r_full)
+                ok = tile["alive"] & (pop >= con) & (pop > 0)
+                return torch.where(ok[:, None], r_full, 0), ok
+
+            return compute
+
+        return self._cached(("bucket", si, bucket), make)
 
     # --------------------------------------------------------------- schedule
     def run(self, *, limit: int = 1_000_000, max_steps: int | None = None,

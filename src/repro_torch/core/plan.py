@@ -23,7 +23,7 @@ from .encoding import BLACK, WHITE, QueryAnalysis
 from .filtering import CandidateSpace
 
 __all__ = ["LevelOp", "MatchingPlan", "build_plan", "plan_from_arrays",
-           "INTERSECT_MODES"]
+           "plan_shape_signature", "INTERSECT_MODES"]
 
 IDX, BM = 0, 1
 
@@ -73,6 +73,47 @@ class MatchingPlan:
     graph_version: int = -1              # Dataset.graph_version the plan's
                                          # tables were packed against (-1 =
                                          # built outside the Dataset layer)
+
+
+def _pow2ceil(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+def plan_shape_signature(plan: "MatchingPlan", *, tile_rows: int) -> tuple:
+    """Canonical padded shape signature of a compiled plan.
+
+    Two plans with equal signatures can share one batched program (and one
+    set of supersteps): query vertices are renamed to the level at which
+    the matching order binds them, and every bitmap width is padded up to
+    the next power of two, so structurally equivalent queries over
+    different-size candidate spaces land in the same superbatch bucket.
+    Everything numeric that can stay data — contained-vertex thresholds,
+    table contents, candidate masks — is excluded and fed to the shared
+    program as stacked per-query arrays instead.
+    """
+    canon = {plan.root_vertex: 0}
+    for op in plan.ops:
+        canon[op.vertex] = op.level
+    widths = tuple(_pow2ceil(plan.words[plan.label_of[v]])
+                   for v in sorted(canon, key=canon.get))
+    stages: list[tuple] = [("root",)]
+    for op in plan.ops:
+        for (v, slot, same_bm) in op.decompose:
+            stages.append(("d", canon[v], slot,
+                           tuple(sorted(canon[u] for u in same_bm))))
+        stages.append((
+            "e", canon[op.vertex], op.store,
+            tuple((s, canon[u]) for (s, u) in op.bk_pairs),
+            tuple(sorted(canon[u] for u in op.wt_vertices)),
+            canon.get(op.union_src, -1),
+            tuple(op.same_label_idx_slots),
+            tuple(sorted(canon[u] for u in op.same_label_bm)),
+            tuple(op.dedup_slots),
+            op.idx_slot))
+    leaf = (tuple(sorted(canon[u] for u in plan.leaf_singles)),
+            tuple(sorted(tuple(sorted(canon[u] for u in g))
+                         for g in plan.leaf_groups)))
+    return ("sbv1", int(tile_rows), widths, tuple(stages), leaf)
 
 
 def _space_pos(space: np.ndarray, ids: np.ndarray) -> np.ndarray:

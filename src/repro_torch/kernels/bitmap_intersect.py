@@ -1,6 +1,7 @@
 """Wrappers of the Hopper bitmap kernels (`csrc/bitmap_intersect.cu`).
 
-    tile_intersect(tables, idx, slots, clear_slots)   -> (R (T, W), pop (T,))
+    tile_intersect(tables, idx, slots, clear_slots, qid_slot)
+                                                      -> (R (T, W), pop (T,))
     expand_select(r, start, n_out, idx)
         -> (rows, bitpos, valid, total, child_idx)
     expand_intersect(r, start, n_out, idx, tables, slots, clear_slots)
@@ -11,7 +12,10 @@
 
 `tile_intersect` is the engine's whole pair-branch extension compute in one
 launch: keys read from a tile's index columns, the AND, the same-label
-clears and the popcount after them. `expand_select` is the frontier's
+clears and the popcount after them; with `qid_slot` (the superbatch's
+query lane) each table is a stack of per-query tables and row t reads the
+table of the query in its index column `qid_slot`. `expand_select` is the
+frontier's
 set-bit selection and the child tile's index columns; `expand_intersect`
 adds the child's first extension to the same launch. `bitmap_intersect`
 and `fused_expand_intersect` keep the TPU kernels' contracts as thin entry
@@ -20,7 +24,8 @@ points over the same device code.
 Bitmaps are int32 tensors carrying the reference's uint32 bits. A wrapper
 takes the plain torch version (`ref.py`) only because its tensors lie on the
 CPU; CUDA tensors launch the kernel, and anything else raises. Each wrapper
-counts its kernel launches in a plain integer attribute, `launches`.
+counts its kernel launches in a plain integer attribute, `launches`;
+`tile_intersect.lane_launches` counts those of them with a query lane.
 """
 from __future__ import annotations
 
@@ -51,7 +56,9 @@ class _TableSet(ctypes.Structure):
                 ("slot", ctypes.c_int * MAX_TABLES),
                 ("clear", ctypes.c_int * MAX_CLEARS),
                 ("k", ctypes.c_int),
-                ("n_clear", ctypes.c_int)]
+                ("n_clear", ctypes.c_int),
+                ("qslot", ctypes.c_int),
+                ("nq", ctypes.c_int)]
 
 
 _TABLE_SETS: dict[tuple, _TableSet] = {}
@@ -83,11 +90,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _table_set(tables, slots, clears) -> _TableSet:
+def _table_set(tables, slots, clears, qslot=-1) -> _TableSet:
     """The parameter struct for these tables, cached by its values (the
-    plan's tables keep their addresses, so a set is built once)."""
+    plan's tables keep their addresses, so a set is built once). With a
+    query lane (qslot >= 0) the tables are (Q, S_j, W) stacks: rows are
+    each query's S_j."""
+    nq = tables[0].shape[0] if qslot >= 0 else 0
     key = (tuple(t.data_ptr() for t in tables),
-           tuple(t.shape[0] for t in tables), slots, clears)
+           tuple(t.shape[-2] for t in tables), slots, clears, qslot, nq)
     ts = _TABLE_SETS.get(key)
     if ts is None:
         if len(_TABLE_SETS) >= _TABLE_SETS_MAX:
@@ -98,22 +108,29 @@ def _table_set(tables, slots, clears) -> _TableSet:
         for j, c in enumerate(clears):
             ts.clear[j] = c
         ts.k, ts.n_clear = len(tables), len(clears)
+        ts.qslot, ts.nq = qslot, nq
         _TABLE_SETS[key] = ts
     return ts
 
 
-def _check_tables(tables, device) -> int:
+def _check_tables(tables, device, stacked=False) -> int:
+    """The tables' common width; with `stacked` they are (Q, S_j, W)
+    stacks of one query count Q >= 1."""
     if not tables:
         raise ValueError("need at least one table")
     if len(tables) > MAX_TABLES:
         raise ValueError(f"at most {MAX_TABLES} tables, got {len(tables)}")
-    w = tables[0].shape[1] if tables[0].dim() == 2 else -1
+    dims = 3 if stacked else 2
+    lead = tables[0].shape[:-2] if tables[0].dim() == dims else None
+    w = tables[0].shape[-1]
     for tbl in tables:
-        if tbl.dtype != torch.int32 or tbl.dim() != 2:
-            raise TypeError(f"tables must be 2-D int32, got {tbl.dtype} "
+        if tbl.dtype != torch.int32 or tbl.dim() != dims:
+            raise TypeError(f"tables must be {dims}-D int32, got {tbl.dtype} "
                             f"{tuple(tbl.shape)}")
-        if tbl.shape[1] != w or tbl.shape[0] < 1:
-            raise ValueError("tables must share one width and hold >= 1 row")
+        if (tbl.shape[-1] != w or tbl.shape[-2] < 1
+                or tbl.shape[:-2] != lead or (stacked and tbl.shape[0] < 1)):
+            raise ValueError("tables must share one width (and query "
+                             "count) and hold >= 1 row")
         if tbl.device != device:
             raise ValueError(f"table on {tbl.device}, indices on {device}")
         if not tbl.is_contiguous():
@@ -167,7 +184,8 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _intersect(tables, slots, clears, idx, rows, bitpos, n_out, w, dev):
+def _intersect(tables, slots, clears, idx, rows, bitpos, n_out, w, dev,
+               qslot=-1):
     """Launch intersect_kernel; returns (R (n_out, W), pop (n_out,))."""
     lib = _lib()
     r = torch.empty((n_out, w), dtype=torch.int32, device=dev)
@@ -175,7 +193,7 @@ def _intersect(tables, slots, clears, idx, rows, bitpos, n_out, w, dev):
     if n_out == 0:
         return r, pop
     n_in, k0 = idx.shape
-    ts = _table_set(tables, slots, clears)
+    ts = _table_set(tables, slots, clears, qslot)
     with torch.cuda.device(dev):
         code = lib.cemr_intersect(
             ctypes.addressof(ts), idx.data_ptr() if k0 else None, n_in, k0,
@@ -186,7 +204,8 @@ def _intersect(tables, slots, clears, idx, rows, bitpos, n_out, w, dev):
     return r, pop
 
 
-def tile_intersect(tables, idx: torch.Tensor, slots, clear_slots=()):
+def tile_intersect(tables, idx: torch.Tensor, slots, clear_slots=(),
+                   qid_slot=None):
     """The pair branch of an extension compute over a tile's index columns:
     R[t] = AND_j tables[j][idx[t, slots[j]]], then for each c in
     clear_slots the bit idx[t, c] cleared (a negative entry clears
@@ -194,21 +213,29 @@ def tile_intersect(tables, idx: torch.Tensor, slots, clear_slots=()):
 
     tables: k × (S_j, W) int32, contiguous; idx: (T, K) int32;
     slots: k ints in [0, K); clear_slots: ints in [0, K).
+    With qid_slot (an int in [0, K): the query lane) each table is a
+    (Q, S_j, W) stack and R[t] = AND_j tables[j][idx[t, qid_slot],
+    idx[t, slots[j]]], each index taken on its own axis.
     Returns (R (T, W) int32, pop (T,) int32)."""
     tables = tuple(tables)
     dev = idx.device
-    w = _check_tables(tables, dev)
+    lane = qid_slot is not None
+    w = _check_tables(tables, dev, stacked=lane)
     if idx.dim() != 2:
         raise TypeError(f"idx must be (T, K), got {tuple(idx.shape)}")
     _check_index("idx", idx, tuple(idx.shape), dev)
     k_cols = idx.shape[1]
     slots = _check_slots("slots", slots, len(tables), k_cols - 1)
     clears = _check_clears(clear_slots, k_cols - 1)
+    qslot = (_check_slots("qid_slot", (qid_slot,), 1, k_cols - 1)[0] if lane
+             else -1)
     if not _on_card(dev, "tile_intersect"):
-        return ref.tile_intersect_ref(tables, idx, slots, clears)
+        return ref.tile_intersect_ref(tables, idx, slots, clears,
+                                      qid_slot if lane else None)
     out = _intersect(tables, slots, clears, idx, None, None, idx.shape[0], w,
-                     dev)
+                     dev, qslot)
     tile_intersect.launches += 1
+    tile_intersect.lane_launches += lane
     return out
 
 
@@ -354,6 +381,7 @@ def reset_launches() -> None:
     """Set every wrapper's launch count to 0."""
     for fn in WRAPPERS:
         fn.launches = 0
+    tile_intersect.lane_launches = 0
 
 
 reset_launches()

@@ -11,6 +11,12 @@
 //     bitmap_intersect_pallas (and the column stacking and clears around
 //     it); the old (tables, idxs) contract is the case slot_j = j, no
 //     clears;
+//   * the same with a query lane (qslot >= 0): each table is a stack of
+//     nq per-query tables of rows[j] rows, and row t reads query
+//     idx[t, qslot]'s table, R[t] = AND_j table_j[qid, key_j(t)] — the
+//     cross-query superbatch's pair branch, where the query id is index
+//     column 0 of the batched tile (so expand_select carries it into the
+//     child tile with the other parent columns);
 //   * cemr_intersect with a given selection (rows, bitpos): key slot
 //     s < K0 reads idx[rows[t], s] and slot K0 reads bitpos[t]; the old
 //     fused_expand_intersect contract.
@@ -58,7 +64,8 @@
 // addresses, row counts, key slots and clear slots reach each kernel by
 // value in one parameter struct (no device array, no dependent load).
 // Row indices are taken as a jnp gather takes them (negative from the
-// end, then clamped into the table), so a kernel never reads past a table;
+// end, then clamped into the table; a query id and a key each on its own
+// axis), so a kernel never reads past a table;
 // a negative clear value, or one past the row's words, clears nothing.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
@@ -88,6 +95,9 @@ struct TableSet {
   int clear[kMaxClears];                 // index columns whose bit is cleared
   int k;                                 // tables (0: selection only)
   int n_clear;
+  int qslot;                             // index column of the query id,
+                                         // -1: no query lane
+  int nq;                                // queries stacked in each table
 };
 
 // Per-warp scratch: the k gathered row addresses and the clear positions.
@@ -123,8 +133,10 @@ __device__ __forceinline__ void intersect_row(
     const TableSet& ts, Value value, int n_words, int lane, WarpRows& ws,
     uint32_t* __restrict__ r_out, int32_t* __restrict__ pop_out) {
   if (lane < ts.k) {
-    const int row = clamp_row(value(ts.slot[lane]), ts.rows[lane]);
-    ws.rowp[lane] = ts.base[lane] + (long long)row * n_words;
+    long long row = clamp_row(value(ts.slot[lane]), ts.rows[lane]);
+    if (ts.qslot >= 0)                   // the query's table of the stack
+      row += (long long)clamp_row(value(ts.qslot), ts.nq) * ts.rows[lane];
+    ws.rowp[lane] = ts.base[lane] + row * n_words;
   }
   if (lane < ts.n_clear) ws.clear[lane] = value(ts.clear[lane]);
   __syncwarp();

@@ -62,13 +62,23 @@ def _clear_cols(r, pop, cols, clear_slots):
     return r, pop
 
 
-def tile_intersect_ref(tables, idx, slots, clear_slots=()):
+def tile_intersect_ref(tables, idx, slots, clear_slots=(), qid_slot=None):
     """The engine's pair-branch composition: stack the key columns
     idx[:, slots], `bitmap_intersect_ref`, then the same-label clears of
-    idx[:, clear_slots]. Returns (R (T, W) int32, pop (T,) int32)."""
-    idxs = torch.stack([idx[:, s] for s in slots], dim=1)
-    r, pop = bitmap_intersect_ref(tables, idxs)
-    return _clear_cols(r, pop[:, 0], idx, clear_slots)
+    idx[:, clear_slots]. With qid_slot (the superbatch's query lane) the
+    tables are (Q, S_j, W) stacks and row t gathers
+    tables[j][idx[t, qid_slot], idx[t, slots[j]]], each index taken as jnp
+    takes it on its own axis. Returns (R (T, W) int32, pop (T,) int32)."""
+    if qid_slot is None:
+        idxs = torch.stack([idx[:, s] for s in slots], dim=1)
+        r, pop = bitmap_intersect_ref(tables, idxs)
+        return _clear_cols(r, pop[:, 0], idx, clear_slots)
+    r = None
+    for tbl, s in zip(tables, slots):
+        q = _jnp_index(idx[:, qid_slot], tbl.shape[0])
+        rows = tbl[q, _jnp_index(idx[:, s], tbl.shape[1])]
+        r = rows if r is None else (r & rows)
+    return _clear_cols(r, row_popcount(r), idx, clear_slots)
 
 
 def expand_select_ref(r, start, n_out, idx):

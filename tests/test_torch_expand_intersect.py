@@ -9,7 +9,11 @@ which must equal the JAX package's composition of the same steps:
   * expand_select: `repro.core.bitops.expand_select` and the child columns
     idx[rows] ++ bitpos;
   * tile_intersect: `bitmap_intersect_pallas(interpret=True)` over the key
-    columns, then the same-label clears.
+    columns, then the same-label clears;
+  * tile_intersect with a query lane: the superbatch's jnp gathers
+    `tables[qid, key]` over stacked per-query tables, ANDed, then
+    `clear_bit_rows` and `row_popcount` (the reference's
+    `BatchProgram._make_compute_parts` pair branch).
 
 Inputs are numpy arrays from a seed. Negative index entries sit only in
 columns that are cleared, never in key columns: Pallas in interpret mode
@@ -189,6 +193,73 @@ def test_tile_intersect_plain_matches_pallas_and_clears(k, w):
             assert torch.equal(got[1][:, 0], plain[1])
 
 
+def _lane_inputs(rng, k, w, q, t_rows=29, n_cols=4):
+    """Stacked (Q, S_j, W) tables and index columns: column 0 the query
+    id, columns 1..n_cols-1 keys; query ids and keys both run negative and
+    past the end (each is taken on its own axis), and the last column
+    also holds clear values."""
+    tables = [_bits(rng, (q, int(rng.integers(1, 40)), w),
+                    str(rng.choice(["dense", "sparse", "ones"])))
+              for _ in range(k)]
+    idx = np.stack([rng.integers(-q - 2, q + 3, t_rows)]
+                   + [rng.integers(-45, 45, t_rows)
+                      for _ in range(n_cols - 1)], 1).astype(np.int32)
+    slots = [int(s) for s in rng.integers(1, n_cols, k)]
+    return tables, idx, slots, [n_cols - 1, slots[0]]
+
+
+def _jax_lane(tables, idx, slots, clears):
+    r = None
+    for tbl, s in zip(tables, slots):
+        rows = jnp.asarray(tbl)[jnp.asarray(idx[:, 0]), jnp.asarray(idx[:, s])]
+        r = rows if r is None else (r & rows)
+    for c in clears:
+        r = jbitops.clear_bit_rows(r, jnp.asarray(idx[:, c]))
+    return r, jbitops.row_popcount(r)
+
+
+@pytest.mark.parametrize("q", [1, 2, 5, 8])
+@pytest.mark.parametrize("w", [1, 33, 128])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_tile_intersect_lane_plain_matches_jax_gather(k, w, q):
+    rng = np.random.default_rng(1000 * k + 10 * w + q)
+    for clears_on in (True, False):
+        tables, idx, slots, clears = _lane_inputs(rng, k, w, q)
+        clears = clears if clears_on else []
+        r, pop = _jax_lane(tables, idx, slots, clears)
+        tt = [_t(t) for t in tables]
+        ti = torch.from_numpy(idx)
+        for got in (ref.tile_intersect_ref(tt, ti, slots, clears, qid_slot=0),
+                    bi.tile_intersect(tt, ti, slots, clears, qid_slot=0)):
+            _same(got[0], r)
+            _same(got[1], pop)
+        if q == 1:
+            # one query: the lane reads that query's table, like no lane
+            # over the query's own table with the query column in range
+            ti[:, 0] = 0
+            plain = bi.tile_intersect([x[0] for x in tt], ti, slots, clears)
+            lane = bi.tile_intersect(tt, ti, slots, clears, qid_slot=0)
+            assert all(torch.equal(a, b) for a, b in zip(plain, lane))
+
+
+def test_tile_intersect_lane_rejects_bad_inputs():
+    stacked = [torch.zeros((2, 4, 3), dtype=torch.int32)]
+    idx = torch.zeros((5, 3), dtype=torch.int32)
+    with pytest.raises(TypeError):                  # 2-D tables with a lane
+        bi.tile_intersect([stacked[0][0]], idx, [1], qid_slot=0)
+    with pytest.raises(TypeError):                  # stacks without a lane
+        bi.tile_intersect(stacked, idx, [1])
+    with pytest.raises(ValueError):                 # query counts differ
+        bi.tile_intersect(stacked + [torch.zeros((3, 4, 3),
+                                                 dtype=torch.int32)],
+                          idx, [1, 2], qid_slot=0)
+    with pytest.raises(ValueError):                 # lane column >= K
+        bi.tile_intersect(stacked, idx, [1], qid_slot=3)
+    with pytest.raises(ValueError):                 # no query
+        bi.tile_intersect([torch.zeros((0, 4, 3), dtype=torch.int32)], idx,
+                          [1], qid_slot=0)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     rng = np.random.default_rng(0)
     tt = [_t(t) for t in _tables(rng, 2, 4)]
@@ -198,7 +269,9 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     bi.expand_select(r, 0, 8, idx)
     bi.expand_intersect(r, 0, 8, idx, tt, [2, 0], [2])
     bi.tile_intersect(tt, idx, [0, 1], [1])
+    bi.tile_intersect([t[None] for t in tt], idx, [1, 1], [1], qid_slot=0)
     assert {fn.__name__: fn.launches for fn in bi.WRAPPERS} == before
+    assert bi.tile_intersect.lane_launches == 0
 
 
 def test_new_wrappers_reject_bad_inputs():
@@ -286,3 +359,20 @@ def test_cuda_new_kernels_match_plain_versions(k0):
             got = bi.tile_intersect(tt, idx, [0] * k, [k0 - 1])
             want = ref.tile_intersect_ref(tt, idx, [0] * k, [k0 - 1])
             assert all(torch.equal(g, x) for g, x in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_tile_intersect_lane_matches_plain_version():
+    """The query lane against its plain version on the card
+    (chip_smoke.py runs the full grid)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (runs on the H100 via chip_smoke.py)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    for k, w, q in [(1, 1, 1), (2, 33, 5), (4, 128, 8)]:
+        tables, idx, slots, clears = _lane_inputs(rng, k, w, q, t_rows=300)
+        tt = [_t(t).to(dev) for t in tables]
+        ti = torch.from_numpy(idx).to(dev)
+        got = bi.tile_intersect(tt, ti, slots, clears, qid_slot=0)
+        want = ref.tile_intersect_ref(tt, ti, slots, clears, qid_slot=0)
+        assert all(torch.equal(g, x) for g, x in zip(got, want))

@@ -134,10 +134,12 @@ def test_matcher_runs_on_cuda_unless_told_cpu(monkeypatch):
 
 
 def test_options_not_ported_raise():
-    for bad in (dict(mesh="auto"), dict(mesh=2), dict(use_cer_buffer=False)):
+    for bad in (dict(mesh="auto"), dict(mesh=2)):
         with pytest.raises(NotImplementedError):
             MatchOptions(**bad)
     assert MatchOptions(mesh=1).mesh == 1
+    # the compat loop is ported: use_cer_buffer=False is a valid option
+    assert MatchOptions(use_cer_buffer=False).use_cer_buffer is False
     with pytest.raises(ValueError):
         MatchOptions(intersect="bogus")
 

@@ -1,5 +1,6 @@
-"""Reference runs of `repro.core.scheduler.TileScheduler` for the torch
-port's parity tests, made in a subprocess of their own.
+"""Reference runs of `repro.core.scheduler.TileScheduler` and
+`SuperbatchScheduler` for the torch port's parity tests, made in a
+subprocess of their own.
 
 The reference scheduler does `from jax.experimental import enable_x64`,
 which newer JAX releases no longer have. The subprocess sets
@@ -12,6 +13,18 @@ arguments, and optionally `runs`: how often one engine runs the query (a
 second run meets the ring buffers the first one filled); the stats are the
 last run's. Both sides build the plan with `reference_plan`, which uses
 only the numpy half of `repro` (no JAX).
+
+A case with `"kind": "superbatch"` names a multi-query workload (see
+BATCH_WORKLOADS), its `encoding`, `tile_rows` and `limit`, optionally
+`max_steps`, `runs` and `overflow_limit` (a patched OVERFLOW_LIMIT), plus
+SuperbatchScheduler keyword arguments. Its queries are bucketed as
+`Matcher.match_many` buckets them (`reference_buckets`), each bucket of two
+or more runs through one SuperbatchScheduler (program cache cleared first),
+and the result is one {"indices", "counts", "timed_out", "stats"} per
+bucket.
+
+Run as `python tests/torch_reference.py chip-constants`, it prints the
+reference's counters that `chip_smoke.py` holds the port to.
 """
 from __future__ import annotations
 
@@ -22,12 +35,15 @@ import subprocess
 import sys
 from pathlib import Path
 
-from strategies import brother_workload, fig1_pair, random_pair
+import numpy as np
+
+from strategies import (batch_workload, brother_workload, fig1_pair,
+                        random_pair)
 
 from repro.core.graph import random_walk_query, synthetic_labeled_graph
 
-__all__ = ["WORKLOADS", "workload", "port_graph", "reference_plan",
-           "run_reference"]
+__all__ = ["WORKLOADS", "BATCH_WORKLOADS", "workload", "port_graph",
+           "reference_plan", "reference_buckets", "run_reference"]
 
 _HERE = Path(__file__).resolve().parent
 _SRC = _HERE.parent / "src"
@@ -64,6 +80,59 @@ WORKLOADS = {
 }
 
 
+def _union_pair():
+    """all_white plans of this query have decompose boundaries and a
+    no-black-bwd union stage (the batched union)."""
+    data = synthetic_labeled_graph(180, 7.0, 2, seed=3)
+    q = random_walk_query(data, 6, seed=301)
+    return data, [q, q]
+
+
+def _overflow_pair():
+    data = synthetic_labeled_graph(60, 5.0, 3, seed=2, power_law=False)
+    q = random_walk_query(data, 5, seed=12)
+    return data, [q, q]
+
+
+def _failing_pair():
+    """A second run of this pair at tile_rows=16 meets the failures the
+    first one recorded."""
+    q, data = random_pair(7, qsize=6)
+    return data, [q, q]
+
+
+# multi-query workloads, (data, queries): tests/test_batch_differential.py's
+# and a pair whose extensions fail
+BATCH_WORKLOADS = {
+    "batch1": lambda: batch_workload(seed=1, n=220, n_queries=4, dup=2),
+    "batch2": lambda: batch_workload(seed=2, n=260, n_queries=3, dup=2),
+    "union": _union_pair,
+    "overflow": _overflow_pair,
+    "failing": _failing_pair,
+}
+
+
+def reference_buckets(name, *, encoding="cost", tile_rows=256):
+    """The superbatch buckets of a multi-query workload as `match_many`
+    forms them on the vector engine: [(indices, plans)] per padded shape
+    signature with two or more non-empty queries, plans built by the
+    reference's numpy compile path."""
+    from repro.core.plan import build_plan, plan_shape_signature
+    from repro.core.ref_engine import preprocess
+    data, queries = BATCH_WORKLOADS[name]()
+    buckets: dict = {}
+    for i, q in enumerate(queries):
+        cs, an = preprocess(q, data, encoding=encoding)
+        if any(c.shape[0] == 0 for c in cs.cand):
+            continue
+        plan = build_plan(cs, an)
+        sig = plan_shape_signature(plan, tile_rows=tile_rows)
+        buckets.setdefault(sig, ([], []))
+        buckets[sig][0].append(i)
+        buckets[sig][1].append(plan)
+    return [b for b in buckets.values() if len(b[0]) >= 2]
+
+
 def workload(name):
     """(query, data) reference Graphs of a named workload."""
     return WORKLOADS[name]()
@@ -96,6 +165,13 @@ def _run_cases(cases):
     out = []
     for case in cases:
         case = dict(case)
+        kind = case.pop("kind", None)
+        if kind == "superbatch":
+            out.append(_run_superbatch(case))
+            continue
+        if kind == "stack":
+            out.append(_run_stack(case))
+            continue
         name = case.pop("workload")
         limit = case.pop("limit", 10 ** 9)
         encoding = case.pop("encoding", "cost")
@@ -106,6 +182,55 @@ def _run_cases(cases):
             res = eng.run(limit=limit)
         out.append({"count": res.count, "timed_out": res.timed_out,
                      "stats": dataclasses.asdict(res.stats)})
+    return out
+
+
+def _run_superbatch(case):
+    import repro.core.scheduler as sched
+    name = case.pop("workload")
+    encoding = case.pop("encoding", "cost")
+    limit = case.pop("limit", 10 ** 9)
+    max_steps = case.pop("max_steps", None)
+    runs = case.pop("runs", 1)
+    saved = sched.OVERFLOW_LIMIT
+    sched.OVERFLOW_LIMIT = case.pop("overflow_limit", saved)
+    sched._PROGRAMS.clear()
+    try:
+        out = []
+        for indices, plans in reference_buckets(
+                name, encoding=encoding,
+                tile_rows=case.get("tile_rows", 256)):
+            sb = sched.SuperbatchScheduler(plans, **case)
+            for _ in range(runs):
+                counts, st, timed_out = sb.run(limit=limit,
+                                               max_steps=max_steps)
+            out.append({"indices": indices, "counts": counts,
+                        "timed_out": timed_out,
+                        "stats": dataclasses.asdict(st)})
+        return out
+    finally:
+        sched.OVERFLOW_LIMIT = saved
+        sched._PROGRAMS.clear()
+
+
+def _run_stack(case):
+    """The reference's stack_batch_inputs of each bucket, as lists of the
+    uint32 words and int32 thresholds."""
+    from repro.core.plan import _pow2ceil, plan_shape_signature
+    from repro.core.scheduler import stack_batch_inputs
+    tile_rows = case.get("tile_rows", 256)
+    out = []
+    for _indices, plans in reference_buckets(
+            case["workload"], encoding=case.get("encoding", "cost"),
+            tile_rows=tile_rows):
+        sig = plan_shape_signature(plans[0], tile_rows=tile_rows)
+        data = stack_batch_inputs(sig, plans, _pow2ceil(len(plans)))
+        out.append({
+            "tables": {k: np.asarray(v).tolist()
+                       for k, v in data["tables"].items()},
+            "mask_root": np.asarray(data["mask_root"]).tolist(),
+            "con": {k: np.asarray(v).tolist()
+                    for k, v in data["con"].items()}})
     return out
 
 
@@ -124,5 +249,60 @@ def run_reference(cases, *, timeout=600):
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+# chip_smoke.py's superbatch mix on synthetic dblp at scale 1.0, as
+# (query size, seed), and its compat-route counts, as (dataset, scale,
+# size); every compat query is random_query(size, seed=7)
+CHIP_MIX = [(4, 2), (4, 3), (4, 4), (4, 8), (4, 9), (8, 7), (8, 7), (3, 1)]
+CHIP_COMPAT = [("dblp", 1.0, 8), ("human", 1.0, 8), ("dblp", 0.02, 8)]
+CHIP_STATS = ("supersteps", "leaf_tiles", "packed_tiles", "cer_hits",
+              "fail_hits", "bucket_recompiles")
+CHIP_COMPAT_STATS = ("bucketed_tiles", "dedup_unique", "device_steps")
+
+
+def chip_constants():
+    """The reference's counters on chip_smoke.py's superbatch mix (one
+    SuperbatchScheduler per bucket of two or more, default options,
+    limit 1,000,000) and compat counts (`use_cer_buffer=False`)."""
+    import jax
+    import jax.experimental
+    if not hasattr(jax.experimental, "enable_x64"):
+        jax.experimental.enable_x64 = jax.enable_x64
+    from repro.api import Dataset, Matcher
+    from repro.core.engine import VectorEngine
+    from repro.core.plan import plan_shape_signature
+    from repro.core.scheduler import SuperbatchScheduler, _PROGRAMS
+
+    limit = 1_000_000
+    m = Matcher(Dataset.synthetic("dblp", scale=1.0))
+    buckets: dict = {}
+    for i, (size, seed) in enumerate(CHIP_MIX):
+        cq = m.compile(m.dataset.random_query(size=size, seed=seed))
+        sig = plan_shape_signature(cq.plan, tile_rows=256)
+        buckets.setdefault(sig, []).append((i, cq.plan))
+    _PROGRAMS.clear()
+    mix = []
+    for items in buckets.values():
+        if len(items) < 2:
+            mix.append({"indices": [i for i, _ in items]})
+            continue
+        counts, st, _ = SuperbatchScheduler(
+            [p for _, p in items]).run(limit=limit)
+        mix.append({"indices": [i for i, _ in items], "counts": counts,
+                    **{k: getattr(st, k) for k in CHIP_STATS}})
+    compat = []
+    for name, scale, size in CHIP_COMPAT:
+        mm = Matcher(Dataset.synthetic(name, scale=scale))
+        cq = mm.compile(mm.dataset.random_query(size=size, seed=7))
+        res = VectorEngine(cq.cs, cq.an, plan=cq.plan, intersect="jnp",
+                           use_cer_buffer=False).run(limit=limit)
+        compat.append({"workload": [name, scale, size], "count": res.count,
+                       **{k: getattr(res.stats, k)
+                          for k in CHIP_COMPAT_STATS}})
+    return {"mix": mix, "compat": compat}
+
+
 if __name__ == "__main__":
-    print(json.dumps(_run_cases(json.loads(sys.argv[1]))))
+    if sys.argv[1] == "chip-constants":
+        print(json.dumps(chip_constants()))
+    else:
+        print(json.dumps(_run_cases(json.loads(sys.argv[1]))))
