@@ -49,7 +49,11 @@ Phases, in order; any failure exits non-zero:
               entry points never, and the torch `bitops.expand_select`
               never on the card. The two routes' VectorStats must be
               equal, and the scale-1.0 dblp supersteps and CER hits equal
-              the JAX reference's (those counts stop at the limit);
+              the JAX reference's (those counts stop at the limit). The
+              scale-1.0 dblp queries are then counted once more with
+              `mesh="auto"` (`check_mesh_auto`): over this host's visible
+              cards it must take the single-device path, with the count
+              and every VectorStats field of the `mesh=None` run;
   4b. superbatch and compat paths — on the same scale-1.0 dblp, a mix of
               `random_query` (size, seed) pairs MIX: five size-4 queries
               that must form one bucket, a size-8 query twice (a bucket
@@ -77,6 +81,33 @@ Phases, in order; any failure exits non-zero:
               queries per second batched and sequential, and the lane's
               device time at the size-4 bucket's widest extend beside the
               lane-free call on the same tables;
+  4c. streaming and runtime — on the same dblp: `--arch match` through
+              the launcher's `serve_match` (16 size-4 queries, engine
+              "vector"), counts held against `cemr_match` and each kernel
+              launched once per boundary or extend covered (`PathCalls`);
+              `Matcher.count_delta` on a Dataset of its own, exact bases
+              for four queries below the limit (one without a base, so
+              its first outcome is a fallback recount), through 8
+              `random_delta(seed=i, 3 edge inserts, 3 edge deletes)`, one
+              with vertex inserts and deletes, one whose labels miss a
+              query's (its plan must be carried, with the same engine and
+              device tables), and the delete and re-insert of an edge of
+              an embedding: every outcome equal to a fresh Matcher's
+              count on a fresh Dataset, the final counts to `cemr_match`,
+              the maintained graph and index to `apply_delta_reference` +
+              `build_data_index` bit for bit, and one standing query of a
+              MatchQueueRuntime through 2 more deltas; printed, not
+              asserted: each count_delta's ms beside the index
+              maintenance's, the fresh Dataset's and the fresh recount's.
+              Then `MatchQueueRuntime` over phase 4b's mix inline and on 2
+              spawned workers, and a `MatchService` on 2 workers: an
+              open loop of 32 requests at half the inline drain's rate,
+              a drain with one worker SIGKILLed mid-bucket and a drain
+              after the respawn. Every count equal to the sequential one,
+              no failure and no degradation to the ref engine, the
+              workers' reported kernel launches above 0; printed: p50,
+              p99, sustained q/s, each worker's boot seconds, the card's
+              memory a worker and `nvidia-smi --query-compute-apps`;
   5. LM path — qwen2-1.5b decode serving (`repro_torch.launch.serve`):
               the reduced model's four float32 steps on the card against
               the same steps on the CPU (logits within 1e-4, the same
@@ -121,6 +152,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -615,6 +647,43 @@ def mix_queries(ds) -> list:
     return [ds.random_query(size=size, seed=seed) for size, seed in MIX]
 
 
+def check_mesh_auto(api, options_mod, work, runs) -> dict:
+    """Phase 4's dblp counts once more with `mesh="auto"` on the card, each
+    on a fresh Matcher over the same Dataset (a warm engine keeps its CER
+    and failing-set state, so only a cold run is comparable). The
+    reference's cost model over `torch.cuda.device_count()` cards must pick
+    the single-device path (a larger result raises), and each count and
+    every VectorStats field must equal the `mesh=None` run's."""
+    n_devices = torch.cuda.device_count()
+    held = []
+    for w, r in zip(work, runs):
+        if (w["dataset"], w["scale"]) != ("dblp", 1.0):
+            continue
+        rows = int(w["compiled"].cs.sizes().sum())
+        lanes = options_mod.auto_mesh_devices(
+            rows, n_devices=n_devices, cpu_count=os.cpu_count() or 1,
+            platform="gpu")
+        m = api.Matcher(w["matcher"].dataset, device=w["matcher"].device)
+        out = m.count(w["query"], engine="vector", intersect="auto",
+                      limit=LIMIT, mesh="auto")
+        stats = dataclasses.asdict(out.stats)
+        where = f"dblp size {w['query_size']} mesh=\"auto\""
+        if out.count != r["count"]:
+            raise SystemExit(f"{where}: count {out.count} != mesh=None "
+                             f"{r['count']}")
+        if stats != r["stats"]:
+            diff = {k: (v, r["stats"][k]) for k, v in stats.items()
+                    if v != r["stats"][k]}
+            raise SystemExit(f"{where}: VectorStats differ from mesh=None: "
+                             f"{diff}")
+        held.append({"query_size": w["query_size"], "total_rows": rows,
+                     "auto_mesh_devices": lanes, "count": out.count})
+    if not held:
+        raise SystemExit("phase 4 has no dblp scale 1.0 count to hold "
+                         "mesh=\"auto\" against")
+    return {"device_count": n_devices, "held": held}
+
+
 def drive_superbatch(api, bi, engine_mod, bitops_mod, sched_mod, ds,
                      cemr_match) -> dict:
     """The superbatch path: the MIX on `ds` through a fresh Matcher's
@@ -805,6 +874,445 @@ def drive_compat(bi, engine_mod, bitops_mod, work) -> list:
                      "wall_s": wall, "launches": launches,
                      "stats": dataclasses.asdict(st)})
     return runs
+
+
+LAUNCHER_ARGS = ["--arch", "match", "--dataset", "dblp", "--scale", "1.0",
+                 "--query-size", "4", "--n-queries", "16", "--limit",
+                 str(LIMIT), "--engine", "vector"]
+# streaming: random_delta(graph, seed=i, 3 edge inserts, 3 edge deletes)
+# for i < STREAM_DELTAS (the reference delta_bench's small batch), one
+# more with vertex inserts and deletes, one whose labels miss a query's
+# (the carried plan), then the delete and the re-insert of an edge that
+# an embedding uses (random edits of a graph this size touch none)
+STREAM_DELTAS = 8
+STANDING_DELTAS = 2
+SERVICE_REQUESTS = 32
+POOL_WORKERS = 2
+
+
+def launch_counts(bi) -> dict:
+    return {fn.__name__: fn.launches for fn in bi.WRAPPERS}
+
+
+def require_launched(where: str, launches: dict, calls: dict | None) -> None:
+    """The bitmap kernels of the auto route launched (tile_intersect and
+    expand_select), the fused and old entry points never, and the torch
+    expand_select never on the card (`calls` from `PathCalls`, or None
+    where the path ran in worker processes)."""
+    if launches["tile_intersect"] <= 0 or launches["expand_select"] <= 0 \
+            or launches["expand_intersect"] or launches["bitmap_intersect"] \
+            or launches["fused_expand_intersect"]:
+        raise SystemExit(f"{where}: launches {launches}")
+    if calls is not None and calls["torch_expand_select_on_card"]:
+        raise SystemExit(f"{where}: the torch expand_select ran on the card")
+
+
+def require_path_launches(where: str, launches: dict, calls: dict) -> None:
+    """`require_launched`, and each kernel once per boundary or extend the
+    path covered, batched or not (`PathCalls`)."""
+    want = {"tile_intersect": calls["pair_compute"]
+            + calls["batched_pair_compute"],
+            "expand_select": calls["expand"] + calls["batched_expand"],
+            "expand_intersect": 0, "bitmap_intersect": 0,
+            "fused_expand_intersect": 0}
+    if launches != want:
+        raise SystemExit(f"{where}: launches {launches}, expected {want} "
+                         f"(path calls {calls})")
+    require_launched(where, launches, calls)
+
+
+def compute_apps() -> list[str]:
+    """`nvidia-smi --query-compute-apps=pid,used_memory` lines."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
+
+
+def device_used_bytes(dev) -> int:
+    """Bytes in use on the whole card, every process's."""
+    free, total = torch.cuda.mem_get_info(dev)
+    return total - free
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def exact_count(m, q, cemr_match) -> int:
+    cq = m.compile(q)
+    return cemr_match(q, m.dataset.graph, limit=LIMIT,
+                      preprocessed=(cq.cs, cq.an)).count
+
+
+def drive_launcher(serve, bi, engine_mod, bitops_mod, sched_mod, dblp_m,
+                   cemr_match, dev) -> dict:
+    """`--arch match` through the launcher's own `serve_match` (its Dataset,
+    Matcher and `match_many`), launch counts set to 0 just before and read
+    just after, the path's kernel work counted by `PathCalls`; its counts
+    held against `cemr_match` on phase 4's identical dblp."""
+    args = serve.parse_args(LAUNCHER_ARGS + ["--device", str(dev)])
+    sched_mod._PROGRAMS.clear()
+    with PathCalls(engine_mod, bitops_mod, sched_mod) as path:
+        bi.reset_launches()
+        res = serve.serve_match(args)
+        sync(dev)
+        launches = launch_counts(bi)
+    calls = dict(path.calls)
+    if res["dataset"].signature != dblp_m.dataset.signature:
+        raise SystemExit("the launcher's dblp differs from phase 4's")
+    want = [exact_count(dblp_m, q, cemr_match) for q in res["queries"]]
+    if res["counts"] != want or res["engines"]["vector"] != len(want):
+        raise SystemExit(f"launcher counts {res['counts']} != cemr_match "
+                         f"{want} ({res['engines']})")
+    require_path_launches("launcher", launches, calls)
+    return {"counts": res["counts"], "seconds": res["seconds"],
+            "queries_per_s": len(want) / res["seconds"],
+            "launches": launches, "path_calls": calls,
+            "cache_info": dataclasses.asdict(res["cache_info"])}
+
+
+def exact_queries(m, cemr_match, n: int, taken) -> list:
+    """The first `n` size-3 random queries (seeds from 2 up, skipping
+    `taken`) whose counts lie in [1,000, LIMIT): exact counts with work
+    enough to reach the kernels."""
+    out = []
+    for seed in range(2, 64):
+        if (3, seed) in taken:
+            continue
+        q = m.dataset.random_query(size=3, seed=seed)
+        c = exact_count(m, q, cemr_match)
+        if 1_000 <= c < LIMIT:
+            out.append(((3, seed), q, c))
+            if len(out) == n:
+                return out
+    raise SystemExit(f"fewer than {n} size-3 queries count below the limit")
+
+
+def label_disjoint_delta(streaming, graph, query):
+    """Two edge deletes and two edge inserts among vertices whose labels the
+    query does not have: a compiled plan of the query survives it."""
+    ok = ~np.isin(graph.labels, np.unique(query.labels))
+    src = np.repeat(np.arange(graph.n), np.diff(graph.indptr))
+    dst = graph.indices.astype(np.int64)
+    cand = np.flatnonzero(ok[src] & ok[dst] & (src < dst))
+    deletes = np.stack([src[cand[:2]], dst[cand[:2]]], axis=1)
+    vs = np.flatnonzero(ok)
+    inserts = []
+    for a, b in zip(vs[::7], vs[3::7]):
+        if a != b and not graph.has_edge(int(a), int(b)):
+            inserts.append((min(a, b), max(a, b)))
+            if len(inserts) == 2:
+                break
+    return streaming.GraphDelta(edge_inserts=inserts, edge_deletes=deletes)
+
+
+def drive_streaming(api, bi, streaming, runtime_queue, engine_mod,
+                    bitops_mod, filtering, dblp, cemr_match, dev) -> dict:
+    """`Matcher.count_delta` on a Dataset of its own over phase 4's dblp:
+    exact bases for mix query (4, 9) and (3, 1) and a third exact query, a
+    fourth exact query with no base, then STREAM_DELTAS random deltas, one
+    with vertex inserts and deletes, one whose labels miss the third
+    query's (its plan is carried: same CompiledQuery, same engine and device
+    tables), and the delete and re-insert of an edge of one embedding of
+    (3, 1). After each delta every outcome equals a fresh Matcher's count
+    on a fresh Dataset of the maintained graph; at the end the counts equal
+    `cemr_match` and the graph and index equal the rebuild oracle bit for
+    bit. Each row also times the index maintenance alone
+    (`streaming.apply_delta` on the same inputs, discarded) and the fresh
+    Dataset's build. Then one standing query of a MatchQueueRuntime over
+    the same Dataset rolls through STANDING_DELTAS more. Launches counted
+    over the bases and count_delta calls only (the fresh recounts are
+    checks)."""
+    ds = api.Dataset.from_graph(dblp.graph, name="dblp")
+    m = api.Matcher(ds, device=dev)
+    qs = {"A": ds.random_query(size=4, seed=9),
+          "B": ds.random_query(size=3, seed=1)}
+    picked = exact_queries(m, cemr_match, 2, taken={(3, 1)})
+    qs["C"], qs["D"] = picked[0][1], picked[1][1]
+    names = ("A", "B", "C", "D")
+    labels = {"A": (4, 9), "B": (3, 1), "C": picked[0][0],
+              "D": picked[1][0]}
+    tag = {n: "size %d seed %d" % labels[n] for n in names}
+    acc = {fn.__name__: 0 for fn in bi.WRAPPERS}
+
+    def counted(fn):
+        before = launch_counts(bi)
+        out = fn()
+        sync(dev)
+        for k, v in launch_counts(bi).items():
+            acc[k] += v - before[k]
+        return out
+
+    kw = dict(engine="vector", limit=LIMIT)
+    bases = {}
+    rows = []
+    oracle = dblp.graph
+    with PathCalls(engine_mod, bitops_mod) as path:
+        for name in ("A", "B", "C"):
+            out = counted(lambda: m.count(qs[name], **kw))
+            want = exact_count(m, qs[name], cemr_match)
+            if out.count != want or want >= LIMIT:
+                raise SystemExit(f"streaming base {labels[name]}: "
+                                 f"{out.count} != cemr_match {want}")
+            bases[name] = out.count
+        carried = None
+        edge = None
+        for i in range(STREAM_DELTAS + 4):
+            if i < STREAM_DELTAS:
+                d = streaming.random_delta(ds.graph, seed=i,
+                                           n_edge_inserts=3,
+                                           n_edge_deletes=3)
+            elif i == STREAM_DELTAS:
+                d = streaming.random_delta(ds.graph, seed=i,
+                                           n_edge_inserts=3,
+                                           n_edge_deletes=3,
+                                           n_vertex_inserts=2,
+                                           n_vertex_deletes=2)
+            elif i == STREAM_DELTAS + 1:
+                # a fresh compile of C at this version, then a delta its
+                # labels miss: the next count must carry the plan
+                counted(lambda: m.count(qs["C"], **kw))
+                cq = m.compile(qs["C"])
+                eng = next(iter(cq._engines.values()))
+                carried0 = m.cache_info().carried
+                d = label_disjoint_delta(streaming, ds.graph, qs["C"])
+            elif edge is None:
+                emb = cemr_match(qs["B"], ds.graph, limit=1,
+                                 materialize=True).embeddings[0]
+                u, w = 0, int(qs["B"].neighbors(0)[0])
+                edge = sorted((emb[u], emb[w]))
+                d = streaming.GraphDelta(edge_deletes=[edge])
+            else:
+                d = streaming.GraphDelta(edge_inserts=[edge])
+            t0 = time.perf_counter()
+            streaming.apply_delta(ds.graph, ds.index, d)
+            maintain_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            outs = counted(lambda: m.count_delta([qs[n] for n in names], d,
+                                                 **kw))
+            delta_ms = (time.perf_counter() - t0) * 1e3
+            oracle = streaming.apply_delta_reference(oracle, d)
+            t0 = time.perf_counter()
+            fresh = api.Matcher(api.Dataset.from_graph(ds.graph), device=dev)
+            build_ms = (time.perf_counter() - t0) * 1e3
+            recount_ms = {}
+            for n, out in zip(names, outs):
+                t0 = time.perf_counter()
+                want = fresh.count(qs[n], **kw)
+                sync(dev)
+                recount_ms[n] = (time.perf_counter() - t0) * 1e3
+                if out.count != want.count or out.inexact \
+                        or out.graph_version != ds.graph_version \
+                        or want.count >= LIMIT:
+                    raise SystemExit(
+                        f"delta {i} {labels[n]}: count_delta {out} != a "
+                        f"fresh count {want.count}")
+            row = {"delta": i, "edits": repr(d),
+                   "graph_version": ds.graph_version,
+                   "count_delta_ms": delta_ms,
+                   "maintain_ms": maintain_ms,
+                   "fresh_dataset_ms": build_ms,
+                   "outcomes": {tag[n]: {
+                       "count": o.count, "created": o.created,
+                       "destroyed": o.destroyed, "fallback": o.fallback,
+                       "ms": o.elapsed_s * 1e3}
+                       for n, o in zip(names, outs)},
+                   "fresh_recount_ms": {tag[n]: v
+                                        for n, v in recount_ms.items()}}
+            if i == STREAM_DELTAS + 1:
+                out = counted(lambda: m.count(qs["C"], **kw))
+                if m.cache_info().carried <= carried0 \
+                        or m.compile(qs["C"]) is not cq \
+                        or next(iter(cq._engines.values())) is not eng \
+                        or out.count != outs[2].count:
+                    raise SystemExit(
+                        f"label-disjoint delta: no carried plan for "
+                        f"{labels['C']} (cache {m.cache_info()}, count "
+                        f"{out.count} vs {outs[2].count})")
+                carried = m.cache_info().carried
+                row["carried"] = carried
+            rows.append(row)
+            print("stream " + json.dumps(row), flush=True)
+        calls = dict(path.calls)
+        final = {n: exact_count(m, qs[n], cemr_match) for n in names}
+        if [final[n] for n in names] != [o.count for o in outs]:
+            raise SystemExit(f"final counts {[o.count for o in outs]} != "
+                             f"cemr_match {final}")
+        index = filtering.build_data_index(oracle)
+        for f in ("labels", "indptr", "indices"):
+            a, b = getattr(ds.graph, f), getattr(oracle, f)
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise SystemExit(f"maintained graph.{f} != the oracle's")
+        for f in ("deg_out", "nbr_label_counts", "lab_indptr",
+                  "lab_indices"):
+            a, b = getattr(ds.index, f), getattr(index, f)
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise SystemExit(f"maintained index.{f} != the rebuild's")
+        if set(ds.index.by_label) != set(index.by_label) or any(
+                not np.array_equal(ds.index.by_label[k], v)
+                for k, v in index.by_label.items()):
+            raise SystemExit("maintained index.by_label != the rebuild's")
+        fallbacks = [o["fallback"] for r in rows
+                     for o in r["outcomes"].values()]
+        if all(fallbacks) or not any(fallbacks):
+            raise SystemExit(f"count_delta outcomes must include an "
+                             f"identity and a fallback: {fallbacks}")
+        churn = [(o["created"], o["destroyed"]) for r in rows[-2:]
+                 for o in r["outcomes"].values()
+                 if not o["fallback"]]
+        if not any(d for _, d in churn) or not any(c for c, _ in churn):
+            raise SystemExit(f"the edge delete and re-insert changed no "
+                             f"count through the identity path: {churn}")
+        require_launched("streaming", acc, calls)
+        # a standing query of the queue runtime over the same Dataset
+        rt = runtime_queue.MatchQueueRuntime(ds, engine="vector",
+                                             device=dev)
+        before = launch_counts(bi)
+        sid = rt.register_standing(qs["B"], limit=LIMIT)
+        standing = []
+        for k in range(STANDING_DELTAS):
+            d = streaming.random_delta(ds.graph, seed=100 + k,
+                                       n_edge_inserts=3, n_edge_deletes=3)
+            out = rt.apply_delta(d)[sid]
+            sync(dev)
+            want = api.Matcher(api.Dataset.from_graph(ds.graph),
+                               device=dev).count(qs["B"], **kw).count
+            if out.count != want or rt.standing[sid].count != want:
+                raise SystemExit(f"standing query after delta {k}: "
+                                 f"{out.count} != a fresh count {want}")
+            standing.append({"count": out.count, "fallback": out.fallback,
+                             "ms": out.elapsed_s * 1e3})
+        standing_launches = {k: v - before[k]
+                             for k, v in launch_counts(bi).items()}
+    return {"queries": [tag[n] for n in names],
+            "bases": {tag[n]: c for n, c in bases.items()}, "deltas": len(rows),
+            "identity_outcomes": fallbacks.count(False),
+            "fallback_outcomes": fallbacks.count(True),
+            "carried": carried,
+            "final_counts": {tag[n]: c for n, c in final.items()},
+            "launches": acc, "path_calls": calls,
+            "standing": standing, "standing_launches": standing_launches,
+            "queue_stats": dict(rt.stats)}
+
+
+def drive_runtime(runtime, api, dblp, mix, mix_counts, bi, dev) -> dict:
+    """The queue runtime over phase 4b's mix, drained inline and through a
+    pool of POOL_WORKERS spawned workers; then a MatchService on a pool of
+    POOL_WORKERS: an open loop of SERVICE_REQUESTS over the mix at half
+    the inline drain's rate, a chaos drain with one worker SIGKILLed
+    mid-bucket, and a drain after the respawn. Every count equals the
+    sequential count (`mix_counts`), nothing fails or degrades."""
+    from repro_torch.runtime import (FaultInjector, MatchQueueRuntime,
+                                     MatchService, ServiceConfig,
+                                     arrival_schedule, open_loop)
+    res = {}
+    rt = MatchQueueRuntime(dblp, engine="vector", device=dev)
+    rt.submit(mix, limit=LIMIT)
+    bi.reset_launches()
+    t0 = time.perf_counter()
+    got = list(rt.run().values())
+    sync(dev)
+    inline_s = time.perf_counter() - t0
+    res["queue_inline"] = {"seconds": inline_s,
+                           "queries_per_s": len(mix) / inline_s,
+                           "launches": launch_counts(bi),
+                           "stats": dict(rt.stats)}
+    if got != mix_counts or rt.stats["failed"]:
+        raise SystemExit(f"inline queue drain {got} != sequential "
+                         f"{mix_counts}")
+    require_launched("queue inline", res["queue_inline"]["launches"], None)
+
+    def await_ready(pool):
+        deadline = time.monotonic() + 300
+        while pool.idle_count() < pool.size:
+            if time.monotonic() > deadline:
+                raise SystemExit(f"pool not ready: {pool.stats}")
+            pool.poll(0.1)
+
+    # the card's memory in use before the pool, once its workers are
+    # ready (CUDA contexts) and after the drain (plus their tables and
+    # caching allocators): the difference over the pool is a worker's
+    used0 = device_used_bytes(dev)
+    with MatchQueueRuntime(dblp, engine="vector", device=dev,
+                           workers=POOL_WORKERS) as rtp:
+        await_ready(rtp.pool)
+        used_ready = device_used_bytes(dev)
+        rtp.submit(mix, limit=LIMIT)
+        t0 = time.perf_counter()
+        got = list(rtp.run().values())
+        pool_s = time.perf_counter() - t0
+        await_ready(rtp.pool)
+        used_drained = device_used_bytes(dev)
+        per = {"ready": (used_ready - used0) / POOL_WORKERS,
+               "after_drain": (used_drained - used0) / POOL_WORKERS}
+        res["queue_pool"] = {"seconds": pool_s,
+                             "device_bytes_per_worker": per,
+                             "stats": dict(rtp.stats),
+                             "pool": dict(rtp.pool.stats),
+                             "boots": list(rtp.pool.boots),
+                             "worker_launches": dict(
+                                 rtp.pool.kernel_launches),
+                             "compute_apps": compute_apps()}
+    if got != mix_counts or rtp.stats["failed"]:
+        raise SystemExit(f"pool queue drain {got} != sequential "
+                         f"{mix_counts}")
+    require_launched("queue pool", res["queue_pool"]["worker_launches"],
+                     None)
+    print("runtime queue " + json.dumps(res), flush=True)
+
+    cfg = ServiceConfig(workers=POOL_WORKERS, bucket_size=4,
+                        worker_deadline_s=120.0, retry_backoff_s=0.01)
+    qps = 0.5 * res["queue_inline"]["queries_per_s"]
+    with MatchService(dblp, config=cfg, device=dev,
+                      options=api.MatchOptions(engine="vector",
+                                               limit=LIMIT)) as svc:
+        for q in mix:                       # warm both workers' caches
+            svc.submit(q, limit=LIMIT, force=True)
+        svc.drain()
+        svc.reset_stats()
+        await_ready(svc.pool)
+        workload = [dict(query=mix[i % len(mix)], limit=LIMIT)
+                    for i in range(SERVICE_REQUESTS)]
+        schedule = arrival_schedule(SERVICE_REQUESTS, qps, seed=0)
+        summary = open_loop(svc, workload, schedule)
+        wrong = {rid: r.count for rid, r in svc.results.items()
+                 if r.ok and r.count != mix_counts[rid % len(mix)]}
+        if summary["failed"] or svc.stats["degraded"] or wrong \
+                or summary["offered"] != summary["completed"] \
+                + summary["shed"]:
+            raise SystemExit(f"open loop {summary}, stats {svc.stats}, "
+                             f"wrong counts {wrong}")
+        res["open_loop"] = {"offered_qps": qps,
+                            "last_arrival_s": schedule[-1], **summary,
+                            "stats": dict(svc.stats)}
+        print("runtime open loop " + json.dumps(res["open_loop"]),
+              flush=True)
+        for phase, inj in (("chaos", FaultInjector(kill_worker_at={0})),
+                           ("after respawn", None)):
+            svc.reset_stats()
+            tickets = [svc.submit(q, limit=LIMIT, deadline_s=600.0)
+                       for q in mix]
+            counts = svc.drain(injector=inj)
+            got = [counts[t.request_id] for t in tickets]
+            if got != mix_counts or svc.stats["failed"] \
+                    or svc.stats["degraded"]:
+                raise SystemExit(f"service {phase}: {got} != sequential "
+                                 f"{mix_counts} ({svc.stats})")
+            if inj is not None and (svc.pool.stats["respawned"] < 1
+                                    or svc.pool.stats["chaos_kills"] != 1):
+                raise SystemExit(f"chaos drain: {svc.pool.stats}")
+            await_ready(svc.pool)
+            res[phase] = {"stats": dict(svc.stats),
+                          "pool": dict(svc.pool.stats)}
+        res["service_pool"] = {"boots": list(svc.pool.boots),
+                               "worker_launches": dict(
+                                   svc.pool.kernel_launches),
+                               "compute_apps": compute_apps()}
+    require_launched("service workers",
+                     res["service_pool"]["worker_launches"], None)
+    return res
 
 
 def time_lane(bi, ref, sb, dev) -> dict:
@@ -1436,6 +1944,7 @@ def time_kernels(bi, ref, cq, dev, launches, errs, floors) -> list:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1451,8 +1960,11 @@ def main() -> int:
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.config import LM_SHAPES
+    from repro_torch.core import filtering
     from repro_torch.launch import serve
     from repro_torch.models.api import build_bundle
+    from repro_torch import runtime, streaming
+    from repro_torch.runtime import queue as runtime_queue
 
     # the plain versions are the references: full float32 products
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1509,6 +2021,10 @@ def main() -> int:
               f"path calls {calls}", flush=True)
         check_launches(route, launches[route], calls)
     check_runs(by_route)
+    from repro_torch.api import options as options_mod
+    mesh_res = check_mesh_auto(api, options_mod, work, by_route["auto"])
+    print("mesh auto equals mesh=None on the card " + json.dumps(mesh_res),
+          flush=True)
 
     t0 = time.perf_counter()
     dblp = next(w["matcher"].dataset for w in work
@@ -1539,6 +2055,39 @@ def main() -> int:
                           for name in compat_runs[0]["launches"]}
     print(f"compat route: {len(compat_runs)} counts in "
           f"{time.perf_counter() - t0:.3f} s, launches {launches['compat']}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    dblp_m = next(w["matcher"] for w in work
+                  if (w["dataset"], w["scale"]) == ("dblp", 1.0))
+    launcher = drive_launcher(serve, bi, engine_mod, bitops_mod, sched_mod,
+                              dblp_m, cemr_match, dev)
+    print("launcher " + json.dumps(launcher), flush=True)
+    stream_res = drive_streaming(api, bi, streaming, runtime_queue,
+                                 engine_mod, bitops_mod, filtering, dblp,
+                                 cemr_match, dev)
+    print("streaming " + json.dumps(stream_res), flush=True)
+    runtime_res = drive_runtime(runtime, api, dblp, sb_res["queries_list"],
+                                sb_res["counts"]["off"], bi, dev)
+    print("runtime " + json.dumps(runtime_res), flush=True)
+    launches["launcher"] = launcher["launches"]
+    launches["streaming"] = stream_res["launches"]
+    launches["queue_inline"] = runtime_res["queue_inline"]["launches"]
+    launches["workers"] = {
+        k: runtime_res["queue_pool"]["worker_launches"][k]
+        + runtime_res["service_pool"]["worker_launches"][k]
+        for k in runtime_res["queue_pool"]["worker_launches"]}
+    ol = runtime_res["open_loop"]
+    per_worker = runtime_res["queue_pool"]["device_bytes_per_worker"]
+    print(f"phase 4c on {card}: launcher {launcher['queries_per_s']:.2f} "
+          f"queries/s; count_delta {stream_res['identity_outcomes']} "
+          f"identity and {stream_res['fallback_outcomes']} fallback "
+          f"outcomes, carried {stream_res['carried']}; open loop "
+          f"{ol['completed']}/{ol['offered']} at {ol['offered_qps']:.2f} "
+          f"q/s offered, sustained {ol['qps_sustained']:.2f}, p50 "
+          f"{ol['p50_s'] * 1e3:.1f} ms, p99 {ol['p99_s'] * 1e3:.1f} ms; "
+          f"worker boots {runtime_res['service_pool']['boots']}, device "
+          f"bytes a worker {per_worker} ({time.perf_counter() - t0:.3f} s)",
           flush=True)
 
     t0 = time.perf_counter()
@@ -1591,6 +2140,8 @@ def main() -> int:
          "decode_32k step": d32k["vs_plain"]["attention_held"]
                             ["max_abs_err"]}))
 
+    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.3f} s",
+          flush=True)
     print("kernels: " + ", ".join(k["name"] for k in kernels))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,11 @@
     for emb in m.stream(query, limit=10): ...     # explicit embeddings
     print(m.explain(query))                       # order/coloring/plan
     outs = m.match_many(queries)                  # cross-query superbatch
+    m.count(query)                                # seeds an exact base
+    m.count_delta(query, GraphDelta(edge_inserts=[(0, 5)]))  # rolls it on
 """
+from ..streaming import DeltaOutcome, DeltaSummary, GraphDelta
+
 from .dataset import Dataset
 from .matcher import (AUTO_VECTOR_MIN_ROWS, CacheInfo, CompiledQuery,
                       Matcher, MatchOutcome)
@@ -20,5 +24,5 @@ __all__ = [
     "Dataset", "Matcher", "MatchOptions", "MatchOutcome", "CompiledQuery",
     "CacheInfo", "graph_signature", "AUTO_VECTOR_MIN_ROWS",
     "ENGINES", "ENCODINGS", "ORDER_HEURISTICS", "INTERSECT_MODES",
-    "BATCH_MODES",
+    "BATCH_MODES", "GraphDelta", "DeltaSummary", "DeltaOutcome",
 ]

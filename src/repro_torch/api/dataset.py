@@ -6,8 +6,12 @@ that turns compatible-neighbor selection into pure gathers (docs/compile.md)
 — is built here exactly once and shared by every Matcher/query.
 Per-(query, data) artifacts are cached downstream in Matcher's plan cache.
 
-Copy of `repro.api.Dataset` without the streaming half (`apply_delta`,
-`deltas_since`): `graph_version` stays 0 in this package.
+Datasets are not frozen at preprocess time: `apply_delta` applies a
+validated `streaming.GraphDelta` in place, incrementally maintaining the
+graph and index, and bumps the monotonic `graph_version`. Downstream caches
+key on (signature, graph_version); the bounded delta log (`deltas_since`)
+lets `Matcher` carry provably-unaffected compiled plans across versions
+instead of recompiling (docs/streaming.md). A copy of `repro.api.Dataset`.
 """
 from __future__ import annotations
 
@@ -19,22 +23,30 @@ import numpy as np
 from ..core.filtering import DataGraphIndex, build_data_index
 from ..core.graph import (Graph, build_graph, random_walk_query,
                           synthetic_dataset, synthetic_labeled_graph)
+from ..streaming import GraphDelta, apply_delta as _apply_delta
+from ..streaming.maintain import DeltaSummary
 
 from .signature import graph_signature
 
 __all__ = ["Dataset"]
 
+# retained (version, touched_labels) delta summaries per Dataset; enough to
+# carry plans across a realistic update stream, small enough to be free
+_DELTA_LOG_MAX = 64
+
 
 @dataclasses.dataclass
 class Dataset:
     """A preprocessed data graph. Construct via `from_graph` / `from_edges` /
-    `synthetic`, not the raw constructor."""
+    `synthetic`, not the raw constructor. Mutable only through
+    `apply_delta`, which keeps `graph_version` monotonic."""
 
     graph: Graph
     index: DataGraphIndex
     name: str | None = None
     graph_version: int = 0
     _signature: str | None = dataclasses.field(default=None, repr=False)
+    _delta_log: list = dataclasses.field(default_factory=list, repr=False)
 
     # ------------------------------------------------------------ constructors
     @classmethod
@@ -95,6 +107,46 @@ class Dataset:
         if self._signature is None:
             self._signature = graph_signature(self.graph)
         return self._signature
+
+    # --------------------------------------------------------------- streaming
+    def apply_delta(self, delta: GraphDelta, *,
+                    rebuild_fraction: float = 0.25,
+                    force: str | None = None) -> DeltaSummary:
+        """Apply one validated edit batch in place and bump `graph_version`.
+
+        Maintains the graph CSRs and the DataGraphIndex incrementally
+        (bit-identical to a from-scratch rebuild; `force`/`rebuild_fraction`
+        pass through to `streaming.apply_delta`), invalidates the memoized
+        signature, and records the delta's touched-label set in the bounded
+        delta log that backs `deltas_since`. Returns the DeltaSummary,
+        stamped with the new version. Raises ValueError if the delta fails
+        validation; the Dataset is unchanged in that case.
+        """
+        g2, idx2, summary = _apply_delta(
+            self.graph, self.index, delta,
+            rebuild_fraction=rebuild_fraction, force=force)
+        self.graph = g2
+        self.index = idx2
+        self.graph_version += 1
+        self._signature = None
+        summary.graph_version = self.graph_version
+        self._delta_log.append((self.graph_version, summary.touched_labels))
+        del self._delta_log[:-_DELTA_LOG_MAX]
+        return summary
+
+    def deltas_since(self, version: int) -> list[frozenset] | None:
+        """Touched-label sets of every delta applied after `version`, oldest
+        first — the cache carry-forward signal (a compiled plan survives all
+        of them iff its query's labels are disjoint from every set). Returns
+        None when `version` predates the bounded log (caller must assume
+        anything changed); [] when `version` is current."""
+        if version == self.graph_version:
+            return []
+        if version > self.graph_version:
+            return None
+        if not self._delta_log or self._delta_log[0][0] > version + 1:
+            return None
+        return [labels for (v, labels) in self._delta_log if v > version]
 
     # ------------------------------------------------------------ conveniences
     def random_query(self, size: int, seed: int, *,

@@ -12,6 +12,13 @@ one Dataset on one device:
     drains vector-engine queries that share a padded plan shape through
     one cross-query superbatch.
   * `explain` — order, coloring, per-level plan stages, candidate sizes.
+  * `count_delta` — apply a `GraphDelta` to the Dataset and roll exact
+    counts forward through it (`base + created - destroyed`, pinned host
+    enumerations over the delta's edges) instead of re-enumerating; a query
+    without a base is recounted on the device. Compiled plans whose query
+    labels no delta touched are carried across dataset versions.
+  * `tenant_view` — a Matcher with a private plan cache over the same
+    Dataset (the serving runtime's isolation primitive).
 
 The device is the card (`cuda`) unless the caller passes `device="cpu"`;
 with no CUDA and no explicit "cpu", construction raises.
@@ -22,16 +29,20 @@ Engine auto-selection (`engine="auto"`), as in the reference:
   2. total candidate rows Σ|C(u)| < AUTO_VECTOR_MIN_ROWS → "ref";
   3. otherwise → "vector".
 
-Not ported yet: `count_delta` (and the exact-count bases it keeps, which
-`count` and `match_many` seed in the reference), `tenant_view`, and the
-sharded superbatch (`mesh` other than None or 1 raises in MatchOptions).
+Not ported yet: sharded enumeration over several devices (`mesh` of 2 or
+more raises, and so does a `mesh="auto"` that resolves to more than one
+device; ROADMAP.md Queue 1, "Multi-device").
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from collections import OrderedDict
 from typing import Iterator
+
+import numpy as np
+import torch
 
 from ..core.encoding import BLACK, QueryAnalysis
 from ..core.engine import VectorEngine, VectorStats
@@ -41,7 +52,8 @@ from ..core.plan import build_plan, plan_shape_signature
 from ..core.ref_engine import MatchStats, cemr_match, preprocess
 from ..device import resolve_device
 from .dataset import Dataset
-from .options import BATCH_MODES, MatchOptions
+from .options import (BATCH_MODES, MULTI_DEVICE_TODO, MatchOptions,
+                      auto_mesh_devices)
 from .signature import graph_signature
 
 __all__ = ["Matcher", "CompiledQuery", "MatchOutcome", "CacheInfo",
@@ -77,18 +89,22 @@ class MatchOutcome:
 class CacheInfo:
     """Plan-cache counters returned by `Matcher.cache_info()` (hits/misses
     are cumulative for the Matcher's lifetime; size/maxsize describe the
-    LRU)."""
+    LRU; `carried` counts hits served by carrying a compiled plan across a
+    dataset version bump whose deltas provably couldn't affect it)."""
 
     hits: int
     misses: int
     size: int
     maxsize: int
+    carried: int = 0
 
 
 class CompiledQuery:
     """A query compiled against one Dataset: candidate space + analysis,
     plus lazily-built per-engine artifacts (vector MatchingPlan, engines
-    keyed by runtime knobs). Cached and reused by Matcher."""
+    keyed by runtime knobs and device, each holding the plan's tables on
+    its device). Cached and reused by Matcher; carried across dataset
+    versions with its plan and engines when no delta touched its labels."""
 
     def __init__(self, query: Graph, dataset: Dataset, options: MatchOptions,
                  cs: CandidateSpace, an: QueryAnalysis):
@@ -205,18 +221,31 @@ class Matcher:
 
     def __init__(self, dataset: Dataset | Graph,
                  options: MatchOptions | None = None, *, device=None,
-                 plan_cache_size: int = 128, intersect_fn=None):
+                 plan_cache_size: int = 128, intersect_fn=None,
+                 tenant: str = "default"):
         self.device = resolve_device(device)
         if isinstance(dataset, Graph):
             dataset = Dataset.from_graph(dataset)
         self.dataset = dataset
         self.options = options if options is not None else MatchOptions()
+        self.tenant = tenant
         if plan_cache_size < 1:
             raise ValueError("plan_cache_size must be >= 1")
         self._maxsize = plan_cache_size
         self._cache: OrderedDict[tuple, CompiledQuery] = OrderedDict()
         self._hits = 0
         self._misses = 0
+        self._carried = 0
+        # (query signature, plan_key) -> newest full cache key, so a compile
+        # after a dataset mutation can find the previous version's entry and
+        # try to carry it forward instead of recompiling
+        self._latest: dict[tuple, tuple] = {}
+        # the dataset version whose stale entries were last released
+        self._swept_version = dataset.graph_version
+        # query signature -> (graph_version, exact count): bases for
+        # count_delta / standing queries, seeded by exact count() calls
+        self._standing: OrderedDict[str, tuple[int, int]] = OrderedDict()
+        self._standing_max = 4 * plan_cache_size
         self._intersect_fn = intersect_fn
         # warm SuperbatchScheduler per (signature, plan identity, knobs):
         # repeated match_many workloads reuse stacked tables and CER
@@ -229,12 +258,33 @@ class Matcher:
     def cache_info(self) -> CacheInfo:
         """Plan-cache counters (cumulative hits/misses, current size)."""
         return CacheInfo(hits=self._hits, misses=self._misses,
-                         size=len(self._cache), maxsize=self._maxsize)
+                         size=len(self._cache), maxsize=self._maxsize,
+                         carried=self._carried)
+
+    def tenant_view(self, tenant: str, *,
+                    plan_cache_size: int | None = None,
+                    options: MatchOptions | None = None) -> "Matcher":
+        """A tenant-isolated Matcher over the same preprocessed Dataset and
+        device. The query-independent state the Dataset owns is shared; the
+        per-query state (plan cache, warm superbatch schedulers and their
+        device tables, standing bases, hit/miss counters) is private to the
+        view, so one tenant's cold query storm evicts only its own entries.
+        Defaults inherit this Matcher's options, cache size and
+        intersect_fn."""
+        return Matcher(self.dataset,
+                       options if options is not None else self.options,
+                       device=self.device,
+                       plan_cache_size=(plan_cache_size
+                                        if plan_cache_size is not None
+                                        else self._maxsize),
+                       intersect_fn=self._intersect_fn, tenant=tenant)
 
     def clear_cache(self) -> None:
-        """Drop every cached CompiledQuery and warm superbatch scheduler
-        (hit/miss counters are kept)."""
+        """Drop every cached CompiledQuery, standing base and warm
+        superbatch scheduler (hit/miss counters are kept)."""
         self._cache.clear()
+        self._latest.clear()
+        self._standing.clear()
         # warm superbatch schedulers pin their bucket's plans plus stacked
         # device tables; clearing the plan cache must release those too
         self._batch_cache.clear()
@@ -244,20 +294,56 @@ class Matcher:
         base = options if options is not None else self.options
         return base.replace(**overrides) if overrides else base
 
+    def _resolve_mesh(self, opts: MatchOptions,
+                      total_rows: int | None = None) -> None:
+        """Resolve `opts.mesh` for a workload of `total_rows` candidate rows
+        (None = size unknown, assume large). The port runs the
+        single-device path only, so this returns or raises. "auto" is
+        cost-based as in the reference (`options.auto_mesh_devices`): on a
+        CUDA device over the visible cards, on the CPU over one device; a
+        result of 0 or 1 is the single-device path, a larger one raises
+        NotImplementedError. An explicit mesh of 1 is the single-device
+        path too; MatchOptions refuses larger ones."""
+        if opts.mesh != "auto":
+            return
+        if self.device.type == "cuda":
+            n_devices, platform = torch.cuda.device_count(), "gpu"
+        else:
+            n_devices, platform = 1, "cpu"
+        n = auto_mesh_devices(total_rows, n_devices=n_devices,
+                              cpu_count=os.cpu_count() or 1,
+                              platform=platform)
+        if n > 1:
+            raise NotImplementedError(
+                f"mesh=\"auto\" resolved to {n} devices: {MULTI_DEVICE_TODO}")
+
     # ---------------------------------------------------------------- compile
     def compile(self, query: Graph, options: MatchOptions | None = None,
                 **overrides) -> CompiledQuery:
         """Preprocess + analyze `query`, reusing the plan cache. The key is
         (canonical query signature, plan-relevant options, dataset content
         signature, dataset graph_version); runtime knobs (engine, tile_rows,
-        limit, ...) share one compiled entry."""
+        limit, ...) share one compiled entry. Keying on dataset content +
+        version means a mutated Dataset is never served a stale plan; after
+        an `apply_delta` whose touched-vertex labels are all disjoint from
+        the query's labels, the previous version's entry — plan, engines
+        and their device tables — is carried forward (provably unaffected:
+        every candidate row and auxiliary CSR it holds reads only rows of
+        query-labeled vertices) and counted in `cache_info().carried`."""
         opts = self._resolve_options(options, overrides)
-        key = (graph_signature(query), opts.plan_key, self.dataset.signature,
+        self._release_stale()
+        qsig = graph_signature(query)
+        key = (qsig, opts.plan_key, self.dataset.signature,
                self.dataset.graph_version)
         cq = self._cache.get(key)
         if cq is not None:
             self._hits += 1
             self._cache.move_to_end(key)
+            return cq
+        cq = self._carry_forward(qsig, opts.plan_key, key, query)
+        if cq is not None:
+            self._hits += 1
+            self._carried += 1
             return cq
         self._misses += 1
         cs, an = preprocess(query, self.dataset.graph,
@@ -269,9 +355,73 @@ class Matcher:
                             index=self.dataset.index)
         cq = CompiledQuery(query, self.dataset, opts, cs, an)
         self._cache[key] = cq
+        self._latest[(qsig, opts.plan_key)] = key
         while len(self._cache) > self._maxsize:
-            self._cache.popitem(last=False)
+            evicted, _ = self._cache.popitem(last=False)
+            # keep _latest in lockstep with the LRU: a pointer to an
+            # evicted entry can never be carried forward
+            if self._latest.get((evicted[0], evicted[1])) == evicted:
+                del self._latest[(evicted[0], evicted[1])]
         return cq
+
+    def _carriable(self, key: tuple, query: Graph) -> bool:
+        """Whether the entry under `key` (an older dataset version) may be
+        carried to the current version: every delta since that version
+        touched only labels the query does not have. Disjointness is the
+        sound criterion: candidate sets, NLF rows and label-CSR rows the
+        compile consumed all belong to query-labeled data vertices, which
+        such deltas never touch."""
+        deltas = self.dataset.deltas_since(key[3])
+        if deltas is None:
+            return False
+        qlabels = set(int(l) for l in query.labels)
+        return all(t.isdisjoint(qlabels) for t in deltas)
+
+    def _carry_forward(self, qsig: str, plan_key: tuple, new_key: tuple,
+                       query: Graph) -> CompiledQuery | None:
+        """Re-key a previous dataset version's CompiledQuery to the current
+        version when `_carriable`. Its plan, engines and their device
+        tables stay as they are: the tables are the same bits a fresh
+        compile would pack."""
+        old_key = self._latest.get((qsig, plan_key))
+        if old_key is None or old_key == new_key:
+            return None
+        cq = self._cache.get(old_key)
+        if cq is None or cq.dataset is not self.dataset:
+            return None
+        if not self._carriable(old_key, query):
+            return None
+        del self._cache[old_key]
+        cq.cs.data = self.dataset.graph      # candidates/adjacency unchanged
+        self._cache[new_key] = cq
+        self._latest[(qsig, plan_key)] = new_key
+        return cq
+
+    def _release_stale(self) -> None:
+        """Once per dataset version, free the device state of the cached
+        entries that version can no longer use. Keys carry the version, so
+        an older entry is never served again; only a query's newest entry
+        may still be carried forward. Every other older entry — and a newest
+        one that an intervening delta's labels touched — drops its engines
+        (device tables, ring buffers) and the warm superbatch schedulers
+        built over its plan. The entries stay in the LRU, as in the
+        reference, so `cache_info()` is unchanged."""
+        gv = self.dataset.graph_version
+        if gv == self._swept_version:
+            return
+        self._swept_version = gv
+        latest = set(self._latest.values())
+        stale_plans = set()
+        for key, cq in self._cache.items():
+            if key[3] == gv or (key in latest
+                                and self._carriable(key, cq.query)):
+                continue
+            cq._engines.clear()
+            if cq._plan is not None:
+                stale_plans.add(id(cq._plan))
+        for key in [k for k in self._batch_cache
+                    if stale_plans.intersection(k[1])]:
+            del self._batch_cache[key]
 
     # ---------------------------------------------------------------- execute
     def count(self, query: Graph, options: MatchOptions | None = None,
@@ -293,30 +443,47 @@ class Matcher:
                       graph_version=gv, engine_requested=opts.engine)
         if cq.empty:
             stats = MatchStats() if engine == "ref" else VectorStats()
-            return MatchOutcome(count=0, engine=engine, elapsed_s=0.0,
-                                timed_out=False, stats=stats,
-                                embeddings=[] if opts.materialize else None,
-                                **common)
-        if engine == "ref":
+            out = MatchOutcome(count=0, engine=engine, elapsed_s=0.0,
+                               timed_out=False, stats=stats,
+                               embeddings=[] if opts.materialize else None,
+                               **common)
+        elif engine == "ref":
             res = cemr_match(query, self.dataset.graph,
                              preprocessed=(cq.cs, cq.an),
                              use_cer=opts.use_cer, use_cv=opts.use_cv,
                              use_fs=opts.use_fs, limit=opts.limit,
                              step_budget=opts.budget,
                              materialize=opts.materialize)
-            return MatchOutcome(count=res.count, engine="ref",
-                                elapsed_s=res.elapsed_s,
-                                timed_out=res.timed_out, stats=res.stats,
-                                embeddings=res.embeddings, **common)
-        eng = cq.vector_engine(opts, self.device,
-                               intersect_fn=self._intersect_fn)
-        t0 = time.perf_counter()
-        res = eng.run(limit=opts.limit, max_steps=opts.budget,
-                      materialize=opts.materialize)
-        return MatchOutcome(count=res.count, engine="vector",
-                            elapsed_s=time.perf_counter() - t0,
-                            timed_out=res.timed_out, stats=res.stats,
-                            embeddings=res.embeddings, **common)
+            out = MatchOutcome(count=res.count, engine="ref",
+                               elapsed_s=res.elapsed_s,
+                               timed_out=res.timed_out, stats=res.stats,
+                               embeddings=res.embeddings, **common)
+        else:
+            self._resolve_mesh(opts, total_rows=int(cq.cs.sizes().sum()))
+            eng = cq.vector_engine(opts, self.device,
+                                   intersect_fn=self._intersect_fn)
+            t0 = time.perf_counter()
+            res = eng.run(limit=opts.limit, max_steps=opts.budget,
+                          materialize=opts.materialize)
+            out = MatchOutcome(count=res.count, engine="vector",
+                               elapsed_s=time.perf_counter() - t0,
+                               timed_out=res.timed_out, stats=res.stats,
+                               embeddings=res.embeddings, **common)
+        self._seed_standing(query, out, opts)
+        return out
+
+    def _seed_standing(self, query: Graph, out: MatchOutcome,
+                       opts: MatchOptions) -> None:
+        """Record an exact count as a count_delta base. Only counts that are
+        provably complete qualify (no timeout, under the embedding limit)
+        and only for the current dataset version."""
+        if (out.timed_out or out.count >= opts.limit
+                or out.graph_version != self.dataset.graph_version):
+            return
+        self._standing[graph_signature(query)] = (out.graph_version,
+                                                  out.count)
+        while len(self._standing) > self._standing_max:
+            self._standing.popitem(last=False)
 
     def stream(self, query: Graph, options: MatchOptions | None = None,
                **overrides) -> Iterator[dict[int, int]]:
@@ -414,12 +581,15 @@ class Matcher:
                     compile_s=compile_s,
                     graph_version=self.dataset.graph_version,
                     engine_requested=opts.engine)
+                self._seed_standing(queries[i], outcomes[i], opts)
         return outcomes
 
     def _superbatch_for(self, sig: tuple, cqs: list, opts: MatchOptions):
         """Build (or reuse) the warm superbatch scheduler for one shape
-        bucket."""
+        bucket (its mesh resolved as `count` resolves it)."""
         from ..core.scheduler import SuperbatchScheduler
+        self._resolve_mesh(
+            opts, total_rows=sum(int(cq.cs.sizes().sum()) for cq in cqs))
         key = (sig, tuple(id(cq.plan) for cq in cqs), opts.use_cv,
                opts.use_dedup, opts.use_cer_buffer, opts.cer_buffer_slots,
                opts.use_failure_cache, opts.failure_cache_slots,
@@ -441,3 +611,96 @@ class Matcher:
         else:
             self._batch_cache.move_to_end(key)
         return sched
+
+    # ----------------------------------------------------------------- deltas
+    def count_delta(self, queries, delta, options: MatchOptions | None = None,
+                    **overrides):
+        """Apply `delta` to the Matcher's Dataset and roll the given
+        queries' counts forward through it (docs/streaming.md).
+
+        For each query with a known exact base count (seeded by a previous
+        `count`/`match_many`/`count_delta` on the current version), the new
+        count is `base + created - destroyed`, where both sides are pinned
+        enumerations over only the delta's edges
+        (`streaming.embeddings_touching`, on the host) — no re-enumeration.
+        A query with no usable base, or whose pinned enumeration overflows
+        `opts.delta_limit`, is recounted from scratch on the Matcher's
+        device (`fallback=True`); if that recount times out or hits
+        `opts.limit` the outcome is also flagged `inexact=True` and never
+        seeded as a base. Single-vertex queries are rolled forward by
+        counting label-matching vertex inserts directly. The Dataset is
+        mutated exactly once (`graph_version` advances by 1) whatever the
+        number of queries.
+
+        Accepts one Graph or a list; returns one DeltaOutcome or a list,
+        matching the input shape. Raises ValueError (dataset untouched) if
+        the delta fails validation.
+        """
+        from ..streaming.delta import canonicalize_delta
+        from ..streaming.standing import (DeltaOutcome, DeltaOverflow,
+                                          embeddings_touching)
+        single = isinstance(queries, Graph)
+        qs: list[Graph] = [queries] if single else list(queries)
+        opts = self._resolve_options(options, overrides)
+        ds = self.dataset
+        old_graph, old_index = ds.graph, ds.index
+        old_version = ds.graph_version
+        canon = canonicalize_delta(old_graph, delta)  # validate pre-mutation
+
+        t0s = [time.perf_counter()] * len(qs)
+        bases: list[int | None] = []
+        destroyed: list[int | None] = []
+        for i, q in enumerate(qs):
+            t0s[i] = time.perf_counter()
+            ent = self._standing.get(graph_signature(q))
+            base = ent[1] if ent is not None and ent[0] == old_version \
+                else None
+            d = None
+            if base is not None:
+                try:
+                    d = embeddings_touching(q, old_graph, old_index,
+                                            canon.del_pairs,
+                                            limit=opts.delta_limit)
+                except DeltaOverflow:
+                    d = None
+            bases.append(base)
+            destroyed.append(d)
+
+        ds.apply_delta(delta)
+        new_version = ds.graph_version
+        self._release_stale()
+
+        outcomes: list[DeltaOutcome] = []
+        for i, q in enumerate(qs):
+            created: int | None = None
+            if bases[i] is not None and destroyed[i] is not None:
+                try:
+                    created = embeddings_touching(q, ds.graph, ds.index,
+                                                  canon.ins_pairs,
+                                                  limit=opts.delta_limit)
+                except DeltaOverflow:
+                    created = None
+                if created is not None and q.n == 1:
+                    # single-vertex embeddings use no edges, so pinned
+                    # enumeration can't see them: created = inserted
+                    # vertices with the query's label. Vertex deletes
+                    # retire in place (label kept, still matched), so
+                    # destroyed correctly stays 0.
+                    created += int(np.count_nonzero(
+                        canon.new_labels[canon.n_old:]
+                        == int(q.labels[0])))
+            if created is not None:
+                count = bases[i] + created - destroyed[i]
+                self._standing[graph_signature(q)] = (new_version, count)
+                outcomes.append(DeltaOutcome(
+                    count=count, created=created, destroyed=destroyed[i],
+                    graph_version=new_version, fallback=False,
+                    elapsed_s=time.perf_counter() - t0s[i]))
+            else:
+                out = self.count(q, opts)    # full recount on the new graph
+                outcomes.append(DeltaOutcome(
+                    count=out.count, created=None, destroyed=None,
+                    graph_version=new_version, fallback=True,
+                    inexact=out.timed_out or out.count >= opts.limit,
+                    elapsed_s=time.perf_counter() - t0s[i]))
+        return outcomes[0] if single else outcomes

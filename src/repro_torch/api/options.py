@@ -1,8 +1,10 @@
 """MatchOptions: one validated, frozen configuration object for both engines.
 
 Copy of `repro.api.MatchOptions` with every field kept. The one value this
-package does not run yet raises NotImplementedError: a `mesh` other than
-None or 1 (sharded enumeration). Being frozen and data-only, an options
+package does not run yet raises NotImplementedError: an explicit `mesh` of
+2 or more devices (sharded enumeration; ROADMAP.md Queue 1, "Multi-device").
+`mesh="auto"` resolves, as in the reference, to the single-device path
+whenever one device is visible. Being frozen and data-only, an options
 instance is hashable and safely shareable between a Matcher, its plan cache
 keys, and per-call overrides.
 """
@@ -13,7 +15,8 @@ import dataclasses
 from ..core.plan import INTERSECT_MODES
 
 __all__ = ["MatchOptions", "ENGINES", "ENCODINGS", "ORDER_HEURISTICS",
-           "INTERSECT_MODES", "BATCH_MODES"]
+           "INTERSECT_MODES", "BATCH_MODES", "SHARD_AUTO_MIN_ROWS",
+           "auto_mesh_devices", "MULTI_DEVICE_TODO"]
 
 ENGINES = ("ref", "vector", "auto")
 ENCODINGS = ("cost", "all_black", "all_white", "case12")
@@ -21,6 +24,41 @@ ORDER_HEURISTICS = ("cemr", "ri", "gql")
 # Matcher.match_many execution modes: "auto" drains vector-engine queries
 # through cross-query superbatches; "off" runs them one by one.
 BATCH_MODES = ("auto", "off")
+# what a multi-device mesh raises until sharded enumeration is ported
+MULTI_DEVICE_TODO = ("sharded enumeration over more than one device is not "
+                     "ported to repro_torch yet (ROADMAP.md Queue 1, "
+                     "\"Multi-device\"); use mesh=None")
+
+# mesh="auto" cost model: below this many total candidate rows the shard
+# tax (host-side rebalance + per-superstep lane padding) always exceeds
+# the parallel win, so auto resolves to the single-device path.
+SHARD_AUTO_MIN_ROWS = 4096
+
+
+def auto_mesh_devices(total_rows: int | None, *, n_devices: int,
+                      cpu_count: int, platform: str,
+                      min_rows: int = SHARD_AUTO_MIN_ROWS) -> int:
+    """Cost-based device count for ``mesh="auto"``: how many mesh lanes a
+    workload of `total_rows` candidate rows should shard across.
+
+    Returns 0 (→ single-device path) whenever sharding cannot win:
+
+      * one visible device — nothing to shard across;
+      * a CPU host whose physical core count does not exceed the visible
+        device count — the "mesh lanes" would be timeshared threads;
+      * fewer than `min_rows` total candidate rows — the per-superstep
+        shard tax exceeds the work that can be spread.
+
+    `total_rows=None` means the caller cannot size the workload; it is
+    treated as large (shard if the hardware allows).
+    """
+    if n_devices <= 1:
+        return 0
+    if platform == "cpu" and cpu_count <= n_devices:
+        return 0
+    if total_rows is not None and total_rows < min_rows:
+        return 0
+    return n_devices
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,13 +104,14 @@ class MatchOptions:
                       "fused" (fold the boundary expand+intersect+popcount
                       into the fused CUDA kernel).
     mesh            : multi-device sharded enumeration (vector engine):
-                      None or 1 = single device; sharding ("auto", > 1) is
-                      not ported: NotImplementedError.
+                      None or 1 = single device; "auto" = cost-based
+                      (`auto_mesh_devices`; resolves to the single-device
+                      path on one device); an int > 1 is not ported yet:
+                      NotImplementedError.
     limit           : stop after this many embeddings.
     delta_limit     : cap on the embeddings a `Matcher.count_delta` pinned
                       enumeration may visit per side (created/destroyed);
-                      overflowing falls back to a full recount
-                      (count_delta is not ported yet).
+                      overflowing falls back to a full recount.
     budget          : device/search step budget (`step_budget` of the ref
                       engine, `max_steps` = superstep dispatches of the vector
                       engine); None = no cap.
@@ -138,10 +177,9 @@ class MatchOptions:
                 or self.mesh < 1):
             raise ValueError(f"mesh must be None, \"auto\", or a positive "
                              f"int device count, got {self.mesh!r}")
-        if self.mesh not in (None, 1):
-            raise NotImplementedError(
-                f"mesh={self.mesh!r}: sharded enumeration is not ported to "
-                f"repro_torch yet; use mesh=None")
+        if isinstance(self.mesh, int) and self.mesh > 1:
+            raise NotImplementedError(f"mesh={self.mesh!r}: "
+                                      f"{MULTI_DEVICE_TODO}")
         if not isinstance(self.limit, int) or self.limit < 1:
             raise ValueError(f"limit must be a positive int, "
                              f"got {self.limit!r}")

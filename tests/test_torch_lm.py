@@ -306,8 +306,11 @@ def test_serve_main_runs_on_the_cpu(capsys):
     assert serve.main(["--tokens", "2", "--batch", "2",
                        "--device", "cpu"]) == 0
     assert "decoded 2 tokens × batch 2 on cpu" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 7"):
-        serve.main(["--arch", "match", "--device", "cpu"])
+    # --arch match serves through the same launcher (tests/
+    # test_torch_launch_match.py holds its counts)
+    assert serve.main(["--arch", "match", "--device", "cpu",
+                       "--n-queries", "2", "--scale", "0.03"]) == 0
+    assert "served 2 queries" in capsys.readouterr().out
 
 
 def test_lm_path_imports_neither_jax_nor_the_reference():

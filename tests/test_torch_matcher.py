@@ -99,6 +99,55 @@ def test_the_stats_cases_exercise_the_buffers(reference_stats):
     assert all(v > 0 for v in total.values()), total
 
 
+@pytest.mark.parametrize("name", WORKLOADS + ["synthetic"])
+def test_mesh_auto_equals_the_single_device_path(name):
+    """mesh="auto" resolves to the single-device path on one device, as in
+    the reference: the same count and every VectorStats field."""
+    query, data = workload(name)
+    ds = Dataset.from_graph(port_graph(data))
+    q = port_graph(query)
+    for intersect in ("auto", "fused"):
+        # a Matcher each: a second run on one engine meets its ring buffers
+        kw = dict(engine="vector", intersect=intersect, tile_rows=8)
+        single = Matcher(ds, device="cpu").count(q, mesh=None, **kw)
+        auto = Matcher(ds, device="cpu").count(q, mesh="auto", **kw)
+        assert auto.count == single.count
+        assert dataclasses.asdict(auto.stats) == \
+            dataclasses.asdict(single.stats)
+    outs = Matcher(ds, device="cpu").match_many([q, q], engine="vector",
+                                                 mesh="auto")
+    assert [o.count for o in outs] == [single.count] * 2
+
+
+def test_auto_mesh_devices_equals_the_reference(monkeypatch):
+    from repro.api.options import SHARD_AUTO_MIN_ROWS as REF_MIN_ROWS
+    from repro.api.options import auto_mesh_devices as ref_auto
+    from repro_torch.api.options import (SHARD_AUTO_MIN_ROWS,
+                                         auto_mesh_devices)
+    assert SHARD_AUTO_MIN_ROWS == REF_MIN_ROWS
+    for rows in (None, 0, 100, REF_MIN_ROWS - 1, REF_MIN_ROWS, 10 ** 6):
+        for n_devices in (0, 1, 2, 4, 8):
+            for cpu_count in (1, 2, 4, 16):
+                for platform in ("cpu", "gpu", "tpu"):
+                    kw = dict(n_devices=n_devices, cpu_count=cpu_count,
+                              platform=platform)
+                    assert auto_mesh_devices(rows, **kw) == \
+                        ref_auto(rows, **kw), (rows, kw)
+    # a CUDA Matcher counts the visible cards: more than one, on a
+    # workload big enough to shard, is the multi-device path, not ported
+    m = Matcher(Dataset.from_graph(port_graph(workload("fig1")[1])),
+                device="cpu")
+    opts = MatchOptions(mesh="auto")
+    assert m._resolve_mesh(opts, total_rows=10 ** 6) is None
+    m.device = torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert m._resolve_mesh(opts, total_rows=10 ** 6) is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert m._resolve_mesh(opts, total_rows=100) is None
+    with pytest.raises(NotImplementedError, match="Multi-device"):
+        m._resolve_mesh(opts, total_rows=10 ** 6)
+
+
 def test_stream_and_explain_match_the_reference_api():
     query, data = workload("random2")
     ref = RefMatcher(RefDataset.from_graph(data))
@@ -134,10 +183,10 @@ def test_matcher_runs_on_cuda_unless_told_cpu(monkeypatch):
 
 
 def test_options_not_ported_raise():
-    for bad in (dict(mesh="auto"), dict(mesh=2)):
-        with pytest.raises(NotImplementedError):
-            MatchOptions(**bad)
+    with pytest.raises(NotImplementedError, match="Multi-device"):
+        MatchOptions(mesh=2)
     assert MatchOptions(mesh=1).mesh == 1
+    assert MatchOptions(mesh="auto").mesh == "auto"
     # the compat loop is ported: use_cer_buffer=False is a valid option
     assert MatchOptions(use_cer_buffer=False).use_cer_buffer is False
     with pytest.raises(ValueError):
