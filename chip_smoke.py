@@ -108,6 +108,29 @@ Phases, in order; any failure exits non-zero:
               workers' reported kernel launches above 0; printed: p50,
               p99, sustained q/s, each worker's boot seconds, the card's
               memory a worker and `nvidia-smi --query-compute-apps`;
+  4d. sharded — `repro_torch.core.shard` with its lanes on the one card
+              (`EnumMesh((cuda:0,) * S)`, the counterpart of the reference
+              tests' forced host devices): phase 4's scale-1.0 dblp
+              queries and the skewed star of
+              tests/test_shard_differential.py (tile_rows 16, all_black,
+              order 0, 1, 2) counted on fresh engines single-device and
+              with `ShardedTileScheduler` over 2 and 4 lanes, in the order
+              1, 2, 4, 4, 2, 1: every count equal to the single-device one
+              (and to `cemr_match` below the limit), every VectorStats
+              field equal to the JAX reference's sharded scheduler on as
+              many forced host devices (REFERENCE_SHARD), and, with the
+              launch counts set to 0 just before each count and read just
+              after, each bitmap kernel launched once per live lane per
+              boundary or extend covered (`PathCalls`), the torch
+              expand_select never; then `ShardedSuperbatchScheduler` over
+              4 lanes on phase 4b's five-query bucket: counts equal to the
+              batched drain's, stats to the reference's, the query lane
+              once per batched pair extend. With more than one card, all
+              of it again over meshes of distinct cards, for each lane
+              count there are cards for (`chip_shard.py` runs only this
+              phase, for a machine with several cards).
+              Printed: lanes, supersteps, shard_lanes, shard_rebalances,
+              each count's wall and the bitmap launches a dispatch;
   5. LM path — qwen2-1.5b decode serving (`repro_torch.launch.serve`):
               the reduced model's four float32 steps on the card against
               the same steps on the CPU (logits within 1e-4, the same
@@ -156,6 +179,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -200,6 +224,207 @@ REFERENCE_COMPAT_STATS = {
                         "device_steps": 17},
     ("dblp", 0.02, 8): {"bucketed_tiles": 2, "dedup_unique": 13,
                         "device_steps": 16}}
+# Phase 4d: the sharded schedulers over lanes on one card at these lane
+# counts (the superbatch at SHARD_SB_LANES), on phase 4's scale-1.0 dblp
+# queries and the skewed star of tests/test_shard_differential.py
+# (tile_rows 16, all_black, order 0, 1, 2). REFERENCE_SHARD is every
+# VectorStats field of the JAX reference's ShardedTileScheduler /
+# ShardedSuperbatchScheduler on meshes of as many forced host devices, from
+# `python tests/torch_reference.py chip-constants` on the CPU.
+SHARD_LANES = (2, 4)
+SHARD_SB_LANES = 4
+STAR_TILE_ROWS = 16
+REFERENCE_SHARD = {'dblp': {'8': {'2': {'count': 1000000,
+                                        'stats': {'device_steps': 14,
+                                                  'supersteps': 11,
+                                                  'tiles': 22,
+                                                  'expansions': 22,
+                                                  'rows_processed': 19968,
+                                                  'rows_alive': 3854,
+                                                  'gather_and_ops': 26112,
+                                                  'dedup_keys_seen': 1525,
+                                                  'dedup_unique': 350,
+                                                  'cer_hits': 0,
+                                                  'cer_misses': 1525,
+                                                  'fail_hits': 0,
+                                                  'fail_misses': 6312,
+                                                  'fail_inserts': 0,
+                                                  'fail_pruned_rows': 0,
+                                                  'bucketed_tiles': 0,
+                                                  'packed_tiles': 3,
+                                                  'batched_queries': 0,
+                                                  'bucket_recompiles': 0,
+                                                  'shard_lanes': 22,
+                                                  'shard_rebalances': 1,
+                                                  'leaf_tiles': 8,
+                                                  'leaf_overflows': 0,
+                                                  'peak_stack': 9,
+                                                  'readbacks': 6,
+                                                  'overlapped_supersteps': 5}},
+                                  '4': {'count': 1000000,
+                                        'stats': {'device_steps': 15,
+                                                  'supersteps': 9,
+                                                  'tiles': 36,
+                                                  'expansions': 36,
+                                                  'rows_processed': 27648,
+                                                  'rows_alive': 5612,
+                                                  'gather_and_ops': 35840,
+                                                  'dedup_keys_seen': 2279,
+                                                  'dedup_unique': 430,
+                                                  'cer_hits': 0,
+                                                  'cer_misses': 2279,
+                                                  'fail_hits': 0,
+                                                  'fail_misses': 6963,
+                                                  'fail_inserts': 1,
+                                                  'fail_pruned_rows': 0,
+                                                  'bucketed_tiles': 0,
+                                                  'packed_tiles': 6,
+                                                  'batched_queries': 0,
+                                                  'bucket_recompiles': 0,
+                                                  'shard_lanes': 36,
+                                                  'shard_rebalances': 2,
+                                                  'leaf_tiles': 12,
+                                                  'leaf_overflows': 0,
+                                                  'peak_stack': 12,
+                                                  'readbacks': 5,
+                                                  'overlapped_supersteps': 4}}},
+                            '16': {'2': {'count': 1000000,
+                                         'stats': {'device_steps': 21,
+                                                   'supersteps': 17,
+                                                   'tiles': 34,
+                                                   'expansions': 34,
+                                                   'rows_processed': 74240,
+                                                   'rows_alive': 5983,
+                                                   'gather_and_ops': 115712,
+                                                   'dedup_keys_seen': 6757,
+                                                   'dedup_unique': 963,
+                                                   'cer_hits': 728,
+                                                   'cer_misses': 6029,
+                                                   'fail_hits': 0,
+                                                   'fail_misses': 22106,
+                                                   'fail_inserts': 73,
+                                                   'fail_pruned_rows': 0,
+                                                   'bucketed_tiles': 0,
+                                                   'packed_tiles': 4,
+                                                   'batched_queries': 0,
+                                                   'bucket_recompiles': 0,
+                                                   'shard_lanes': 34,
+                                                   'shard_rebalances': 2,
+                                                   'leaf_tiles': 2,
+                                                   'leaf_overflows': 0,
+                                                   'peak_stack': 22,
+                                                   'readbacks': 9,
+                                                   'overlapped_supersteps': 8}},
+                                   '4': {'count': 1000000,
+                                         'stats': {'device_steps': 17,
+                                                   'supersteps': 9,
+                                                   'tiles': 34,
+                                                   'expansions': 34,
+                                                   'rows_processed': 58368,
+                                                   'rows_alive': 4962,
+                                                   'gather_and_ops': 88064,
+                                                   'dedup_keys_seen': 5386,
+                                                   'dedup_unique': 338,
+                                                   'cer_hits': 564,
+                                                   'cer_misses': 4822,
+                                                   'fail_hits': 0,
+                                                   'fail_misses': 16540,
+                                                   'fail_inserts': 62,
+                                                   'fail_pruned_rows': 0,
+                                                   'bucketed_tiles': 0,
+                                                   'packed_tiles': 8,
+                                                   'batched_queries': 0,
+                                                   'bucket_recompiles': 0,
+                                                   'shard_lanes': 34,
+                                                   'shard_rebalances': 10,
+                                                   'leaf_tiles': 4,
+                                                   'leaf_overflows': 0,
+                                                   'peak_stack': 15,
+                                                   'readbacks': 5,
+                                                   'overlapped_supersteps': 4}}}},
+                   'star': {'2': {'count': 300,
+                                  'stats': {'device_steps': 14,
+                                            'supersteps': 14,
+                                            'tiles': 26,
+                                            'expansions': 26,
+                                            'rows_processed': 432,
+                                            'rows_alive': 401,
+                                            'gather_and_ops': 144,
+                                            'dedup_keys_seen': 0,
+                                            'dedup_unique': 0,
+                                            'cer_hits': 0,
+                                            'cer_misses': 0,
+                                            'fail_hits': 0,
+                                            'fail_misses': 0,
+                                            'fail_inserts': 0,
+                                            'fail_pruned_rows': 0,
+                                            'bucketed_tiles': 0,
+                                            'packed_tiles': 0,
+                                            'batched_queries': 0,
+                                            'bucket_recompiles': 0,
+                                            'shard_lanes': 26,
+                                            'shard_rebalances': 3,
+                                            'leaf_tiles': 19,
+                                            'leaf_overflows': 0,
+                                            'peak_stack': 5,
+                                            'readbacks': 8,
+                                            'overlapped_supersteps': 6}},
+                            '4': {'count': 300,
+                                  'stats': {'device_steps': 8,
+                                            'supersteps': 8,
+                                            'tiles': 26,
+                                            'expansions': 26,
+                                            'rows_processed': 432,
+                                            'rows_alive': 401,
+                                            'gather_and_ops': 144,
+                                            'dedup_keys_seen': 0,
+                                            'dedup_unique': 0,
+                                            'cer_hits': 0,
+                                            'cer_misses': 0,
+                                            'fail_hits': 0,
+                                            'fail_misses': 0,
+                                            'fail_inserts': 0,
+                                            'fail_pruned_rows': 0,
+                                            'bucketed_tiles': 0,
+                                            'packed_tiles': 0,
+                                            'batched_queries': 0,
+                                            'bucket_recompiles': 0,
+                                            'shard_lanes': 26,
+                                            'shard_rebalances': 8,
+                                            'leaf_tiles': 19,
+                                            'leaf_overflows': 0,
+                                            'peak_stack': 6,
+                                            'readbacks': 5,
+                                            'overlapped_supersteps': 3}}},
+                   'superbatch': {'indices': [0, 1, 2, 3, 4],
+                                  'counts': [1000000, 1000000, 1000000,
+                                             1000000, 885622],
+                                  'stats': {'device_steps': 28,
+                                            'supersteps': 28,
+                                            'tiles': 105,
+                                            'expansions': 105,
+                                            'rows_processed': 60928,
+                                            'rows_alive': 21738,
+                                            'gather_and_ops': 60928,
+                                            'dedup_keys_seen': 14757,
+                                            'dedup_unique': 6510,
+                                            'cer_hits': 2,
+                                            'cer_misses': 14755,
+                                            'fail_hits': 0,
+                                            'fail_misses': 21738,
+                                            'fail_inserts': 0,
+                                            'fail_pruned_rows': 0,
+                                            'bucketed_tiles': 0,
+                                            'packed_tiles': 0,
+                                            'batched_queries': 5,
+                                            'bucket_recompiles': 2,
+                                            'shard_lanes': 105,
+                                            'shard_rebalances': 1,
+                                            'leaf_tiles': 77,
+                                            'leaf_overflows': 0,
+                                            'peak_stack': 12,
+                                            'readbacks': 15,
+                                            'overlapped_supersteps': 13}}}
 # The route whose launch count each bitmap kernel reports (tile_intersect
 # runs on both routes)
 KERNEL_ROUTE = {"tile_intersect": "auto", "expand_select": "auto",
@@ -874,6 +1099,205 @@ def drive_compat(bi, engine_mod, bitops_mod, work) -> list:
                      "wall_s": wall, "launches": launches,
                      "stats": dataclasses.asdict(st)})
     return runs
+
+
+def skewed_star(graph_mod):
+    """(query, data): one label-0 hub fanning out to 100 label-1 mids with
+    3 label-2 leaves each (tests/test_shard_differential.py's skewed
+    star): with the hub as root every subtree hangs off one root
+    candidate, so only chunk-splitting spreads it over the lanes."""
+    nmid, nleaf = 100, 3
+    labels = [0] + [1] * nmid + [2] * (nmid * nleaf)
+    edges = [(0, 1 + i) for i in range(nmid)]
+    for i in range(nmid):
+        for j in range(nleaf):
+            edges.append((1 + i, 1 + nmid + i * nleaf + j))
+    data = graph_mod.build_graph(len(labels), edges, labels)
+    query = graph_mod.build_graph(3, [(0, 1), (1, 2)], [0, 1, 2])
+    return query, data
+
+
+def held_stats(where: str, stats: dict, want: dict) -> None:
+    if stats != want:
+        diff = {k: (v, want.get(k)) for k, v in stats.items()
+                if v != want.get(k)}
+        raise SystemExit(f"{where}: VectorStats differ from the "
+                         f"reference's: {diff}")
+
+
+def sharded_count(bi, engine_mod, bitops_mod, cq, dev, mesh, **kw) -> dict:
+    """One cold count through a fresh VectorEngine over `mesh` (None = the
+    single-device scheduler), its launches counted from 0 and its kernel
+    work by `PathCalls`: the wall (synchronised), count, stats, launches
+    and path calls."""
+    with PathCalls(engine_mod, bitops_mod) as path:
+        bi.reset_launches()
+        t0 = time.perf_counter()
+        eng = engine_mod.VectorEngine(cq.cs, cq.an, device=dev,
+                                      plan=cq.plan, mesh=mesh, **kw)
+        res = eng.run(limit=LIMIT)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = launch_counts(bi)
+    return {"lanes": 1 if mesh is None else mesh.size, "count": res.count,
+            "wall_s": wall, "stats": dataclasses.asdict(res.stats),
+            "launches": launches, "path_calls": dict(path.calls)}
+
+
+def launches_a_dispatch(run: dict) -> float:
+    return (sum(run["launches"].values())
+            / max(run["stats"]["supersteps"], 1))
+
+
+def sharded_superbatch(bi, engine_mod, bitops_mod, sched_mod, plans, mesh,
+                       dev, batched, want) -> dict:
+    """One `ShardedSuperbatchScheduler` drain of `plans` over `mesh`, its
+    launches counted from 0 and its kernel work by `PathCalls`: counts
+    equal to the batched drain's and the reference's, every VectorStats
+    field the reference's, each kernel once per live lane per boundary
+    or extend, the query lane once per batched pair extend."""
+    from repro_torch.core.shard import ShardedSuperbatchScheduler
+    where = f"sharded superbatch over {mesh.devices}"
+    with PathCalls(engine_mod, bitops_mod, sched_mod) as path:
+        bi.reset_launches()
+        t0 = time.perf_counter()
+        counts, st, _ = ShardedSuperbatchScheduler(
+            plans, mesh=mesh, device=dev).run(limit=LIMIT)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = launch_counts(bi)
+        lane = bi.tile_intersect.lane_launches
+    if counts != batched or counts != want["counts"]:
+        raise SystemExit(f"{where}: counts {counts}, batched {batched}, "
+                         f"reference {want['counts']}")
+    held_stats(where, dataclasses.asdict(st), want["stats"])
+    calls = dict(path.calls)
+    require_path_launches(where, launches, calls)
+    if lane != calls["batched_pair_compute"] or not lane:
+        raise SystemExit(f"{where}: lane {lane}, batched pair extends "
+                         f"{calls['batched_pair_compute']}")
+    return {"lanes": mesh.size, "counts": counts, "wall_s": wall,
+            "supersteps": st.supersteps, "shard_lanes": st.shard_lanes,
+            "shard_rebalances": st.shard_rebalances, "launches": launches,
+            "lane_launches": lane,
+            "launches_a_dispatch": (sum(launches.values())
+                                    / max(st.supersteps, 1))}
+
+
+def drive_sharded(bi, engine_mod, bitops_mod, sched_mod, graph_mod, work,
+                  sb_res, cemr_match, dev) -> dict:
+    """Phase 4d: sharded enumeration with its lanes on the one card (the
+    counterpart of the reference tests' forced host devices). For phase
+    4's scale-1.0 dblp queries and the skewed star: a single-device count
+    and `ShardedTileScheduler` counts over EnumMesh((cuda:0,) * S) for S
+    in SHARD_LANES, in the order 1, 2, 4, 4, 2, 1, each on a fresh engine;
+    every count equals the single-device one (and cemr_match's where below
+    the limit), every VectorStats field the reference's (REFERENCE_SHARD),
+    and each bitmap kernel launches once per live lane per boundary or
+    extend covered (`PathCalls`), the torch expand_select never. Then
+    `ShardedSuperbatchScheduler` over SHARD_SB_LANES lanes on phase 4b's
+    five-query bucket (`sharded_superbatch`). With more than one card,
+    the same over meshes of distinct cards for each lane count there are
+    cards for, held the same way. Returns what it measured."""
+    from repro_torch.core.plan import build_plan
+    from repro_torch.core.ref_engine import preprocess
+    from repro_torch.launch.mesh import EnumMesh
+    card0 = (torch.device("cuda", torch.cuda.current_device())
+             if dev.type == "cuda" else dev)
+    meshes = {s: EnumMesh((card0,) * s) for s in SHARD_LANES}
+    star_q, star_d = skewed_star(graph_mod)
+    cs, an = preprocess(star_q, star_d, encoding="all_black",
+                        order=[0, 1, 2])
+    star = types.SimpleNamespace(cs=cs, an=an, plan=build_plan(cs, an))
+    cases = [(f"dblp size {w['query_size']}", w["compiled"], w["ref"],
+              REFERENCE_SHARD["dblp"][str(w["query_size"])], {})
+             for w in work if (w["dataset"], w["scale"]) == ("dblp", 1.0)]
+    cases.append(("skewed star", star, cemr_match(
+        star_q, star_d, encoding="all_black", order=[0, 1, 2]).count,
+        REFERENCE_SHARD["star"], {"tile_rows": STAR_TILE_ROWS}))
+    out = []
+    launches = dict.fromkeys(launch_counts(bi), 0)
+    for where, cq, want_count, ref_stats, kw in cases:
+        by_lanes: dict = {}
+        for s in (1, *SHARD_LANES, *SHARD_LANES[::-1], 1):
+            r = sharded_count(bi, engine_mod, bitops_mod, cq, dev,
+                              meshes.get(s), **kw)
+            by_lanes.setdefault(s, []).append(r)
+            if s > 1:
+                for name, n in r["launches"].items():
+                    launches[name] += n
+        single = by_lanes[1][0]
+        if single["count"] != min(want_count, LIMIT):
+            raise SystemExit(f"{where}: single-device count "
+                             f"{single['count']} != cemr_match "
+                             f"{want_count}")
+        for s, rs in by_lanes.items():
+            for r in rs:
+                tag = f"{where} over {s} lane(s)"
+                if r["count"] != single["count"]:
+                    raise SystemExit(f"{tag}: count {r['count']} != the "
+                                     f"single-device {single['count']}")
+                if r["stats"] != rs[0]["stats"]:
+                    raise SystemExit(f"{tag}: two cold runs differ")
+                if s > 1:
+                    held_stats(tag, r["stats"], ref_stats[str(s)]["stats"])
+                    if r["count"] != ref_stats[str(s)]["count"]:
+                        raise SystemExit(f"{tag}: count differs from the "
+                                         "reference's")
+                    if not r["stats"]["shard_lanes"]:
+                        raise SystemExit(f"{tag}: no lane dispatched")
+                require_path_launches(tag, r["launches"], r["path_calls"])
+        out.append({
+            "workload": where, "count": single["count"],
+            "lanes": {s: {"wall_s": [r["wall_s"] for r in rs],
+                          "supersteps": rs[0]["stats"]["supersteps"],
+                          "shard_lanes": rs[0]["stats"]["shard_lanes"],
+                          "shard_rebalances":
+                              rs[0]["stats"]["shard_rebalances"],
+                          "launches": rs[0]["launches"],
+                          "launches_a_dispatch": launches_a_dispatch(rs[0])}
+                      for s, rs in by_lanes.items()}})
+    # the superbatch over lanes, on phase 4b's five-query bucket
+    want = REFERENCE_SHARD["superbatch"]
+    m = sb_res["matcher"]
+    plans = [m.compile(sb_res["queries_list"][i]).plan
+             for i in want["indices"]]
+    batched = [sb_res["counts"]["auto"][i] for i in want["indices"]]
+    sb_out = sharded_superbatch(bi, engine_mod, bitops_mod, sched_mod, plans,
+                                EnumMesh((card0,) * SHARD_SB_LANES), dev,
+                                batched, want)
+    for name, n in sb_out["launches"].items():
+        launches[name] += n
+    # the same over distinct cards, where the machine has more than one
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    distinct = []
+    for s in SHARD_LANES:
+        if s > n_cards:
+            continue
+        mesh = EnumMesh(tuple(torch.device("cuda", i) for i in range(s)))
+        for (where, cq, _, ref_stats, kw), c in zip(cases, out):
+            tag = f"{where} over {s} cards"
+            r = sharded_count(bi, engine_mod, bitops_mod, cq, dev, mesh,
+                              **kw)
+            if r["count"] != c["count"]:
+                raise SystemExit(f"{tag}: count {r['count']} != the "
+                                 f"single-device {c['count']}")
+            held_stats(tag, r["stats"], ref_stats[str(s)]["stats"])
+            require_path_launches(tag, r["launches"], r["path_calls"])
+            distinct.append({"workload": where, "cards": s,
+                             "wall_s": r["wall_s"],
+                             "supersteps": r["stats"]["supersteps"]})
+    if n_cards >= SHARD_SB_LANES:
+        r = sharded_superbatch(
+            bi, engine_mod, bitops_mod, sched_mod, plans,
+            EnumMesh(tuple(torch.device("cuda", i)
+                           for i in range(SHARD_SB_LANES))), dev, batched,
+            want)
+        distinct.append({"workload": "superbatch", "cards": SHARD_SB_LANES,
+                         "wall_s": r["wall_s"],
+                         "supersteps": r["supersteps"]})
+    return {"counts": out, "superbatch": sb_out, "distinct_cards": distinct,
+            "device_count": n_cards, "launches": launches}
 
 
 LAUNCHER_ARGS = ["--arch", "match", "--dataset", "dblp", "--scale", "1.0",
@@ -2089,6 +2513,28 @@ def main() -> int:
           f"worker boots {runtime_res['service_pool']['boots']}, device "
           f"bytes a worker {per_worker} ({time.perf_counter() - t0:.3f} s)",
           flush=True)
+
+    t0 = time.perf_counter()
+    shard_res = drive_sharded(bi, engine_mod, bitops_mod, sched_mod,
+                              graph_mod, work, sb_res, cemr_match, dev)
+    print("sharded " + json.dumps(shard_res), flush=True)
+    for c in shard_res["counts"]:
+        for lanes, r in c["lanes"].items():
+            print(f"sharded {c['workload']} on {card}: {lanes} lane(s), "
+                  f"count {c['count']}, supersteps {r['supersteps']}, "
+                  f"shard_lanes {r['shard_lanes']}, shard_rebalances "
+                  f"{r['shard_rebalances']}, wall "
+                  + ", ".join(f"{w * 1e3:.1f}" for w in r["wall_s"])
+                  + f" ms, launches a dispatch "
+                  f"{r['launches_a_dispatch']:.2f}", flush=True)
+    sbs = shard_res["superbatch"]
+    print(f"sharded superbatch on {card}: {sbs['lanes']} lanes, supersteps "
+          f"{sbs['supersteps']}, shard_lanes {sbs['shard_lanes']}, "
+          f"shard_rebalances {sbs['shard_rebalances']}, wall "
+          f"{sbs['wall_s'] * 1e3:.1f} ms, launches a dispatch "
+          f"{sbs['launches_a_dispatch']:.2f}; phase 4d in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    launches["sharded"] = shard_res["launches"]
 
     t0 = time.perf_counter()
     worst = check_lm_reduced(build_bundle, dev)

@@ -19,6 +19,10 @@ one Dataset on one device:
     labels no delta touched are carried across dataset versions.
   * `tenant_view` — a Matcher with a private plan cache over the same
     Dataset (the serving runtime's isolation primitive).
+  * `mesh` — sharded enumeration (`core.shard`): `mesh=k` spreads the
+    vector engine's supersteps over k lanes, one a visible card (clamped
+    to the cards there are; one card runs the single-device path), and
+    `mesh="auto"` picks the lane count by the reference's cost model.
 
 The device is the card (`cuda`) unless the caller passes `device="cpu"`;
 with no CUDA and no explicit "cpu", construction raises.
@@ -28,10 +32,6 @@ Engine auto-selection (`engine="auto"`), as in the reference:
   1. directed or edge-labeled data → "ref";
   2. total candidate rows Σ|C(u)| < AUTO_VECTOR_MIN_ROWS → "ref";
   3. otherwise → "vector".
-
-Not ported yet: sharded enumeration over several devices (`mesh` of 2 or
-more raises, and so does a `mesh="auto"` that resolves to more than one
-device; ROADMAP.md Queue 1, "Multi-device").
 """
 from __future__ import annotations
 
@@ -42,7 +42,6 @@ from collections import OrderedDict
 from typing import Iterator
 
 import numpy as np
-import torch
 
 from ..core.encoding import BLACK, QueryAnalysis
 from ..core.engine import VectorEngine, VectorStats
@@ -51,9 +50,9 @@ from ..core.graph import Graph
 from ..core.plan import build_plan, plan_shape_signature
 from ..core.ref_engine import MatchStats, cemr_match, preprocess
 from ..device import resolve_device
+from ..launch import mesh as _mesh
 from .dataset import Dataset
-from .options import (BATCH_MODES, MULTI_DEVICE_TODO, MatchOptions,
-                      auto_mesh_devices)
+from .options import BATCH_MODES, MatchOptions, auto_mesh_devices
 from .signature import graph_signature
 
 __all__ = ["Matcher", "CompiledQuery", "MatchOutcome", "CacheInfo",
@@ -127,15 +126,17 @@ class CompiledQuery:
                 graph_version=self.dataset.graph_version)
         return self._plan
 
-    def vector_engine(self, opts: MatchOptions, device, intersect_fn=None):
+    def vector_engine(self, opts: MatchOptions, device, intersect_fn=None,
+                      mesh=None):
         """Build (or reuse) the VectorEngine for this compiled query under
-        the given runtime knobs; engines are keyed by every knob that
-        changes the built step functions."""
+        the given runtime knobs. `mesh` is an already-resolved `EnumMesh`
+        (or None); engines are keyed by every knob that changes the built
+        step functions, so option changes never silently share state."""
         key = (opts.tile_rows, opts.use_cv, opts.use_dedup,
                opts.use_cer_buffer, opts.cer_buffer_slots,
                opts.use_failure_cache,
                opts.failure_cache_slots, opts.pack_tiles, opts.overlap,
-               opts.intersect, id(intersect_fn), str(device))
+               opts.intersect, id(intersect_fn), str(device), mesh)
         eng = self._engines.get(key)
         if eng is None:
             eng = VectorEngine(self.cs, self.an, device=device,
@@ -148,7 +149,8 @@ class CompiledQuery:
                                pack_tiles=opts.pack_tiles,
                                overlap=opts.overlap,
                                intersect=opts.intersect,
-                               intersect_fn=intersect_fn, plan=self.plan)
+                               intersect_fn=intersect_fn, plan=self.plan,
+                               mesh=mesh)
             self._engines[key] = eng
         return eng
 
@@ -253,6 +255,8 @@ class Matcher:
         # unambiguous.
         self._batch_cache: OrderedDict[tuple, object] = OrderedDict()
         self._batch_cache_max = 8
+        # resolved enumeration meshes, memoized per lane count
+        self._meshes: dict = {}
 
     # ------------------------------------------------------------------ cache
     def cache_info(self) -> CacheInfo:
@@ -295,27 +299,31 @@ class Matcher:
         return base.replace(**overrides) if overrides else base
 
     def _resolve_mesh(self, opts: MatchOptions,
-                      total_rows: int | None = None) -> None:
-        """Resolve `opts.mesh` for a workload of `total_rows` candidate rows
-        (None = size unknown, assume large). The port runs the
-        single-device path only, so this returns or raises. "auto" is
-        cost-based as in the reference (`options.auto_mesh_devices`): on a
-        CUDA device over the visible cards, on the CPU over one device; a
-        result of 0 or 1 is the single-device path, a larger one raises
-        NotImplementedError. An explicit mesh of 1 is the single-device
-        path too; MatchOptions refuses larger ones."""
-        if opts.mesh != "auto":
-            return
-        if self.device.type == "cuda":
-            n_devices, platform = torch.cuda.device_count(), "gpu"
+                      total_rows: int | None = None):
+        """Resolve `opts.mesh` ("auto" | lane count | None) to an `EnumMesh`
+        over this Matcher's lane devices (`launch.mesh.lane_devices`: the
+        visible cards on CUDA, one lane on the CPU), or None for the
+        single-device path. "auto" is cost-based as in the reference
+        (`options.auto_mesh_devices`): it shards across every lane device
+        only when the workload — `total_rows` candidate rows; None = size
+        unknown, assume large — is big enough to beat the shard tax, so
+        small queries never pay it. An int is clamped to the lane devices.
+        Resolved meshes are memoized per count; counts <= 1 always
+        resolve to None (bit-identical fallback)."""
+        if opts.mesh is None:
+            return None
+        if opts.mesh == "auto":
+            n = auto_mesh_devices(
+                total_rows, n_devices=len(_mesh.lane_devices(self.device)),
+                cpu_count=os.cpu_count() or 1,
+                platform="gpu" if self.device.type == "cuda" else "cpu")
+            if n <= 1:
+                return None
         else:
-            n_devices, platform = 1, "cpu"
-        n = auto_mesh_devices(total_rows, n_devices=n_devices,
-                              cpu_count=os.cpu_count() or 1,
-                              platform=platform)
-        if n > 1:
-            raise NotImplementedError(
-                f"mesh=\"auto\" resolved to {n} devices: {MULTI_DEVICE_TODO}")
+            n = opts.mesh
+        if n not in self._meshes:
+            self._meshes[n] = _mesh.make_enum_mesh(n, self.device)
+        return self._meshes[n]
 
     # ---------------------------------------------------------------- compile
     def compile(self, query: Graph, options: MatchOptions | None = None,
@@ -459,9 +467,10 @@ class Matcher:
                                timed_out=res.timed_out, stats=res.stats,
                                embeddings=res.embeddings, **common)
         else:
-            self._resolve_mesh(opts, total_rows=int(cq.cs.sizes().sum()))
-            eng = cq.vector_engine(opts, self.device,
-                                   intersect_fn=self._intersect_fn)
+            eng = cq.vector_engine(
+                opts, self.device, intersect_fn=self._intersect_fn,
+                mesh=self._resolve_mesh(
+                    opts, total_rows=int(cq.cs.sizes().sum())))
             t0 = time.perf_counter()
             res = eng.run(limit=opts.limit, max_steps=opts.budget,
                           materialize=opts.materialize)
@@ -586,25 +595,30 @@ class Matcher:
 
     def _superbatch_for(self, sig: tuple, cqs: list, opts: MatchOptions):
         """Build (or reuse) the warm superbatch scheduler for one shape
-        bucket (its mesh resolved as `count` resolves it)."""
-        from ..core.scheduler import SuperbatchScheduler
-        self._resolve_mesh(
+        bucket; a resolved multi-device mesh selects the sharded variant
+        (superbatch query-id lanes compose with the shard axis)."""
+        mesh = self._resolve_mesh(
             opts, total_rows=sum(int(cq.cs.sizes().sum()) for cq in cqs))
         key = (sig, tuple(id(cq.plan) for cq in cqs), opts.use_cv,
                opts.use_dedup, opts.use_cer_buffer, opts.cer_buffer_slots,
                opts.use_failure_cache, opts.failure_cache_slots,
-               opts.pack_tiles, opts.overlap)
+               opts.pack_tiles, opts.overlap, mesh)
         sched = self._batch_cache.get(key)
         if sched is None:
-            sched = SuperbatchScheduler(
-                [cq.plan for cq in cqs], device=self.device,
-                tile_rows=opts.tile_rows, use_cv=opts.use_cv,
-                use_dedup=opts.use_dedup,
-                use_cer_buffer=opts.use_cer_buffer,
-                cer_buffer_slots=opts.cer_buffer_slots,
-                use_failure_cache=opts.use_failure_cache,
-                failure_cache_slots=opts.failure_cache_slots,
-                pack_tiles=opts.pack_tiles, overlap=opts.overlap)
+            kw = dict(device=self.device, tile_rows=opts.tile_rows,
+                      use_cv=opts.use_cv, use_dedup=opts.use_dedup,
+                      use_cer_buffer=opts.use_cer_buffer,
+                      cer_buffer_slots=opts.cer_buffer_slots,
+                      use_failure_cache=opts.use_failure_cache,
+                      failure_cache_slots=opts.failure_cache_slots,
+                      pack_tiles=opts.pack_tiles, overlap=opts.overlap)
+            plans = [cq.plan for cq in cqs]
+            if mesh is not None:
+                from ..core.shard import ShardedSuperbatchScheduler
+                sched = ShardedSuperbatchScheduler(plans, mesh=mesh, **kw)
+            else:
+                from ..core.scheduler import SuperbatchScheduler
+                sched = SuperbatchScheduler(plans, **kw)
             self._batch_cache[key] = sched
             while len(self._batch_cache) > self._batch_cache_max:
                 self._batch_cache.popitem(last=False)

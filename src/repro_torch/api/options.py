@@ -1,12 +1,9 @@
 """MatchOptions: one validated, frozen configuration object for both engines.
 
-Copy of `repro.api.MatchOptions` with every field kept. The one value this
-package does not run yet raises NotImplementedError: an explicit `mesh` of
-2 or more devices (sharded enumeration; ROADMAP.md Queue 1, "Multi-device").
-`mesh="auto"` resolves, as in the reference, to the single-device path
-whenever one device is visible. Being frozen and data-only, an options
-instance is hashable and safely shareable between a Matcher, its plan cache
-keys, and per-call overrides.
+Copy of `repro.api.MatchOptions` with every field kept and validated as
+the reference validates it. Being frozen and data-only, an options instance
+is hashable and safely shareable between a Matcher, its plan cache keys,
+and per-call overrides.
 """
 from __future__ import annotations
 
@@ -16,7 +13,7 @@ from ..core.plan import INTERSECT_MODES
 
 __all__ = ["MatchOptions", "ENGINES", "ENCODINGS", "ORDER_HEURISTICS",
            "INTERSECT_MODES", "BATCH_MODES", "SHARD_AUTO_MIN_ROWS",
-           "auto_mesh_devices", "MULTI_DEVICE_TODO"]
+           "auto_mesh_devices"]
 
 ENGINES = ("ref", "vector", "auto")
 ENCODINGS = ("cost", "all_black", "all_white", "case12")
@@ -24,10 +21,6 @@ ORDER_HEURISTICS = ("cemr", "ri", "gql")
 # Matcher.match_many execution modes: "auto" drains vector-engine queries
 # through cross-query superbatches; "off" runs them one by one.
 BATCH_MODES = ("auto", "off")
-# what a multi-device mesh raises until sharded enumeration is ported
-MULTI_DEVICE_TODO = ("sharded enumeration over more than one device is not "
-                     "ported to repro_torch yet (ROADMAP.md Queue 1, "
-                     "\"Multi-device\"); use mesh=None")
 
 # mesh="auto" cost model: below this many total candidate rows the shard
 # tax (host-side rebalance + per-superstep lane padding) always exceeds
@@ -104,10 +97,10 @@ class MatchOptions:
                       "fused" (fold the boundary expand+intersect+popcount
                       into the fused CUDA kernel).
     mesh            : multi-device sharded enumeration (vector engine):
-                      None or 1 = single device; "auto" = cost-based
-                      (`auto_mesh_devices`; resolves to the single-device
-                      path on one device); an int > 1 is not ported yet:
-                      NotImplementedError.
+                      None or 1 = single device; an int k > 1 = k lanes,
+                      clamped to the visible devices (one device runs
+                      the single-device path); "auto" = cost-based
+                      (`auto_mesh_devices`).
     limit           : stop after this many embeddings.
     delta_limit     : cap on the embeddings a `Matcher.count_delta` pinned
                       enumeration may visit per side (created/destroyed);
@@ -177,9 +170,6 @@ class MatchOptions:
                 or self.mesh < 1):
             raise ValueError(f"mesh must be None, \"auto\", or a positive "
                              f"int device count, got {self.mesh!r}")
-        if isinstance(self.mesh, int) and self.mesh > 1:
-            raise NotImplementedError(f"mesh={self.mesh!r}: "
-                                      f"{MULTI_DEVICE_TODO}")
         if not isinstance(self.limit, int) or self.limit < 1:
             raise ValueError(f"limit must be a positive int, "
                              f"got {self.limit!r}")

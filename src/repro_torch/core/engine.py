@@ -44,7 +44,7 @@ from .filtering import CandidateSpace
 from .plan import IDX, INTERSECT_MODES, LevelOp, MatchingPlan, build_plan
 
 __all__ = ["VectorMatchResult", "VectorStats", "VectorEngine",
-           "INTERSECT_MODES", "upload_plan"]
+           "INTERSECT_MODES", "upload_plan", "vector_match"]
 
 
 @dataclasses.dataclass
@@ -52,8 +52,9 @@ class VectorStats:
     """Counters for one vector-engine run; the same fields as
     `repro.core.engine.VectorStats` (docs/engine.md has the glossary).
     `device_steps` counts host dispatches (one per superstep / merge, or
-    per primitive in the compat loop). The sharding fields stay 0: this
-    package does not shard."""
+    per primitive in the compat loop). The sharding fields count the lanes
+    and rebalances of a sharded run (core/shard.py) and stay 0 on one
+    device."""
 
     device_steps: int = 0
     supersteps: int = 0
@@ -182,7 +183,11 @@ class VectorEngine:
                  use_cer_buffer: bool = True, cer_buffer_slots: int = 256,
                  use_failure_cache: bool = True,
                  failure_cache_slots: int = 64,
-                 pack_tiles: bool = True, overlap: bool = True):
+                 pack_tiles: bool = True, mesh=None, overlap: bool = True):
+        # `mesh` is an `EnumMesh` (launch.mesh.make_enum_mesh); size > 1
+        # selects the sharded scheduler (core.shard), None / size 1 the
+        # single-device path; each lane runs full-width tiles, so one
+        # sharded dispatch covers up to mesh.size frontier chunks at once
         self.plan = build_plan(cs, an) if plan is None else plan
         self.cs, self.an = cs, an
         self.device = torch.device(device)
@@ -195,6 +200,7 @@ class VectorEngine:
         self.use_failure_cache = use_failure_cache
         self.failure_cache_slots = failure_cache_slots
         self.pack_tiles = pack_tiles
+        self.mesh = mesh
         # overlap only changes *when* superstep readbacks happen, never
         # what is computed
         self.overlap = overlap
@@ -519,8 +525,12 @@ class VectorEngine:
     def run(self, *, limit: int = 1_000_000, max_steps: int | None = None,
             materialize: bool = False) -> VectorMatchResult:
         if self._scheduler is None:
-            from .scheduler import TileScheduler
-            self._scheduler = TileScheduler(self)
+            if self.mesh is not None and self.mesh.size > 1:
+                from .shard import ShardedTileScheduler
+                self._scheduler = ShardedTileScheduler(self, self.mesh)
+            else:
+                from .scheduler import TileScheduler
+                self._scheduler = TileScheduler(self)
         return self._scheduler.run(limit=limit, max_steps=max_steps,
                                    materialize=materialize)
 
@@ -560,3 +570,31 @@ class VectorEngine:
 
             rec(0, base)
         return out
+
+
+def vector_match(query, data, *, device=None, encoding: str = "cost",
+                 tile_rows: int = 256, limit: int = 1_000_000,
+                 max_steps: int | None = None, materialize: bool = False,
+                 use_cv: bool = True, use_dedup: bool = True,
+                 intersect_fn=None, order: list[int] | None = None,
+                 intersect: str = "auto", use_cer_buffer: bool = True,
+                 cer_buffer_slots: int = 256, use_failure_cache: bool = True,
+                 failure_cache_slots: int = 64, pack_tiles: bool = True,
+                 mesh=None, overlap: bool = True) -> VectorMatchResult:
+    """End-to-end vectorized CEMR matching (preprocess + tile enumeration)
+    on `device` (None = the card)."""
+    from ..device import resolve_device
+    from .ref_engine import preprocess
+    cs, an = preprocess(query, data, encoding=encoding, order=order)
+    if any(c.shape[0] == 0 for c in cs.cand):
+        return VectorMatchResult(count=0, stats=VectorStats(), timed_out=False,
+                                 embeddings=[] if materialize else None)
+    eng = VectorEngine(cs, an, device=resolve_device(device),
+                       tile_rows=tile_rows, use_cv=use_cv,
+                       use_dedup=use_dedup, intersect_fn=intersect_fn,
+                       intersect=intersect, use_cer_buffer=use_cer_buffer,
+                       cer_buffer_slots=cer_buffer_slots,
+                       use_failure_cache=use_failure_cache,
+                       failure_cache_slots=failure_cache_slots,
+                       pack_tiles=pack_tiles, mesh=mesh, overlap=overlap)
+    return eng.run(limit=limit, max_steps=max_steps, materialize=materialize)

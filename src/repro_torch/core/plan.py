@@ -23,7 +23,8 @@ from .encoding import BLACK, WHITE, QueryAnalysis
 from .filtering import CandidateSpace
 
 __all__ = ["LevelOp", "MatchingPlan", "build_plan", "plan_from_arrays",
-           "plan_shape_signature", "INTERSECT_MODES"]
+           "plan_shape_signature", "root_extension_weights",
+           "INTERSECT_MODES"]
 
 IDX, BM = 0, 1
 
@@ -114,6 +115,28 @@ def plan_shape_signature(plan: "MatchingPlan", *, tile_rows: int) -> tuple:
             tuple(sorted(tuple(sorted(canon[u] for u in g))
                          for g in plan.leaf_groups)))
     return ("sbv1", int(tile_rows), widths, tuple(stages), leaf)
+
+
+def root_extension_weights(plan: "MatchingPlan") -> np.ndarray:
+    """Per-position branching weights of the root candidate space — the
+    degree-weighted balance heuristic for sharded enumeration.
+
+    For every position of the root vertex's label space, the weight is 1
+    plus the total number of extension bits its adjacency rows carry across
+    every plan table gathered *from* the root vertex (i.e. the exact fanout
+    of the level-1 extensions rooted at that candidate). Root candidates
+    with heavier subtrees therefore land in lighter shards first
+    (`distributed.sharding.partition_bitmap`). Returns a float64 array of
+    length `32 * plan.root_words`.
+    """
+    w = np.ones(32 * plan.root_words, np.float64)
+    for (u, _v), tbl in plan.tables.items():
+        if u != plan.root_vertex or tbl.size == 0:
+            continue
+        pops = np.unpackbits(
+            np.ascontiguousarray(tbl).view(np.uint8), axis=1).sum(axis=1)
+        w[:pops.shape[0]] += pops
+    return w
 
 
 def _space_pos(space: np.ndarray, ids: np.ndarray) -> np.ndarray:

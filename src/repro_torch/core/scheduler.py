@@ -510,10 +510,13 @@ class TileScheduler:
         frontier so the host can resume exactly where the ladder stopped.
 
         Returns (step, exit_bounds, seg_cer, seg_fail, n_computes,
-        gather_ops)."""
+        gather_ops). The step takes an optional trailing `part` bitmap
+        (root_words,) that is ANDed into the root extension — the sharded
+        scheduler's per-shard partition of the level-0 candidate rows;
+        `part=None` (the single-device path) leaves the root mask
+        untouched. The step runs on its tile's device."""
         eng = self.eng
         t = self.t
-        dev = self.device
         cer_set = set(self._cer_stages)
         fail_set = set(self._fail_stages)
         segs = _ladder(b, self._n_stages, self._is_boundary)
@@ -593,15 +596,22 @@ class TileScheduler:
             cur["alive"] = alive0 & ~dead
             facc[3] = facc[3] + dead.sum(dtype=torch.int32)
 
-        def step(tile, r_in, cursor, bufs, fbufs, tables, masks):
+        def step(tile, r_in, cursor, bufs, fbufs, tables, masks, part=None):
             bufs = dict(bufs)
             fbufs = dict(fbufs)
-            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            zero = torch.zeros((), dtype=torch.int32,
+                               device=tile["alive"].device)
             acc = [zero] * 4                             # hits/misses/seen/ins
             facc = [zero] * 4                            # fail h/m/ins/pruned
             if root:
                 r0, pop0 = root_compute_r(tile, tables, masks)
                 r_in, _, _ = eng.finish_compute(tile, r0, pop0, root_con)
+                if part is not None:
+                    # shard partition of the *pruned* root extension: the
+                    # contained-vertex threshold must see the global
+                    # popcount, never a partition's (a sub-threshold
+                    # partition of a viable root set is still live work)
+                    r_in = r_in & part[None, :]
             frontiers = []                               # (tile, r) per bound
             alive_l, total_l = [], []
             proceed = None
@@ -1150,9 +1160,13 @@ class BatchProgram:
         the query-id-lane mirror of `TileScheduler._build_step`.
 
         Returns (step, exit_bounds, seg_cer, seg_fail, n_computes,
-        gather_ops)."""
+        gather_ops). The step's optional trailing `part` bitmap
+        (Q, root_words) is ANDed into each query's root extension, row t
+        reading its query's partition — the sharded superbatch's per-shard
+        partition of every query's level-0 candidate rows; `part=None`
+        (single-device) leaves the root masks untouched. The step runs on
+        its tile's device."""
         t = self.t
-        dev = self.device
         cer_set = set(self._cer_stages)
         fail_set = set(self._fail_stages)
         segs = _ladder(b, self._n_stages, self._is_boundary)
@@ -1227,15 +1241,20 @@ class BatchProgram:
             cur["alive"] = alive0 & ~dead
             facc[3] = facc[3] + dead.sum(dtype=torch.int32)
 
-        def step(tile, r_in, cursor, bufs, fbufs, data, active):
+        def step(tile, r_in, cursor, bufs, fbufs, data, active, part=None):
             bufs = dict(bufs)
             fbufs = dict(fbufs)
-            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            zero = torch.zeros((), dtype=torch.int32,
+                               device=tile["alive"].device)
             acc = [zero] * 4                     # hits/misses/seen/ins
             facc = [zero] * 4                    # fail h/m/ins/pruned
             if root:
                 r0, pop0 = root_compute_r(tile, data)
                 r_in, _, _ = self._finish(tile, r0, pop0, root_con, data)
+                if part is not None:
+                    # per-query shard partition of the globally pruned
+                    # root extension (see TileScheduler._build_step)
+                    r_in = r_in & part[tile["idx"][:, 0].long()]
             frontiers = []
             alive_l, total_l = [], []
             proceed = None

@@ -134,7 +134,7 @@ def test_auto_mesh_devices_equals_the_reference(monkeypatch):
                     assert auto_mesh_devices(rows, **kw) == \
                         ref_auto(rows, **kw), (rows, kw)
     # a CUDA Matcher counts the visible cards: more than one, on a
-    # workload big enough to shard, is the multi-device path, not ported
+    # workload big enough to shard, is a mesh over all of them
     m = Matcher(Dataset.from_graph(port_graph(workload("fig1")[1])),
                 device="cpu")
     opts = MatchOptions(mesh="auto")
@@ -144,8 +144,9 @@ def test_auto_mesh_devices_equals_the_reference(monkeypatch):
     assert m._resolve_mesh(opts, total_rows=10 ** 6) is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     assert m._resolve_mesh(opts, total_rows=100) is None
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        m._resolve_mesh(opts, total_rows=10 ** 6)
+    mesh = m._resolve_mesh(opts, total_rows=10 ** 6)
+    assert mesh.size == 4
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(4))
 
 
 def test_stream_and_explain_match_the_reference_api():
@@ -183,14 +184,30 @@ def test_matcher_runs_on_cuda_unless_told_cpu(monkeypatch):
 
 
 def test_options_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        MatchOptions(mesh=2)
+    """Every option the reference accepts is accepted: an explicit mesh of
+    2 or 4 lanes too. On one device mesh=4 is clamped to the single-device
+    path, as the reference's `make_enum_mesh` clamps it: the same count
+    and every VectorStats field as mesh=None."""
+    assert MatchOptions(mesh=2).mesh == 2
+    assert MatchOptions(mesh=4).mesh == 4
     assert MatchOptions(mesh=1).mesh == 1
     assert MatchOptions(mesh="auto").mesh == "auto"
     # the compat loop is ported: use_cer_buffer=False is a valid option
     assert MatchOptions(use_cer_buffer=False).use_cer_buffer is False
     with pytest.raises(ValueError):
         MatchOptions(intersect="bogus")
+    query, data = workload("synthetic")
+    ds = Dataset.from_graph(port_graph(data))
+    q = port_graph(query)
+    m = Matcher(ds, device="cpu")
+    assert m._resolve_mesh(MatchOptions(mesh=4), total_rows=10 ** 6) is None
+    kw = dict(engine="vector", tile_rows=8)
+    single = Matcher(ds, device="cpu").count(q, mesh=None, **kw)
+    four = Matcher(ds, device="cpu").count(q, mesh=4, **kw)
+    assert four.count == single.count
+    assert dataclasses.asdict(four.stats) == dataclasses.asdict(single.stats)
+    outs = Matcher(ds, device="cpu").match_many([q, q], mesh=4, **kw)
+    assert [o.count for o in outs] == [single.count] * 2
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -215,7 +232,8 @@ def test_sources_import_neither_jax_nor_the_reference():
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
                          r"(\.|\s))", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "chip_trace.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_trace.py",
+              ROOT / "chip_shard.py"]
     assert len(files) > 10
     for f in files:
         assert not pattern.search(f.read_text()), f

@@ -23,8 +23,24 @@ or more runs through one SuperbatchScheduler (program cache cleared first),
 and the result is one {"indices", "counts", "timed_out", "stats"} per
 bucket.
 
+A case with `"kind": "sharded"` runs the reference's sharded
+enumeration: a single-query case as above plus `mesh` (a lane count), and
+optionally `order` and `materialize` (the result then carries the
+embeddings, in the order the reference produced them); with `"batch":
+true` it names a multi-query workload instead and runs each bucket through
+a `ShardedSuperbatchScheduler`, as the superbatch case does. Any sharded
+case makes the subprocess start with 4 forced host devices
+(`--xla_force_host_platform_device_count=4`), which the reference meshes
+are built over.
+
+A case with `"kind": "matcher"` runs the reference `Matcher` on a named
+workload: `call` is "count" (one query) or "match_many" (a multi-query
+workload, with `batch`), `options` are MatchOptions fields. The result
+is the list of {"count", "stats"} per query.
+
 Run as `python tests/torch_reference.py chip-constants`, it prints the
-reference's counters that `chip_smoke.py` holds the port to.
+reference's counters that `chip_smoke.py` holds the port to (about two
+minutes on the CPU, 4 forced host devices).
 """
 from __future__ import annotations
 
@@ -43,7 +59,11 @@ from strategies import (batch_workload, brother_workload, fig1_pair,
 from repro.core.graph import random_walk_query, synthetic_labeled_graph
 
 __all__ = ["WORKLOADS", "BATCH_WORKLOADS", "workload", "port_graph",
-           "reference_plan", "reference_buckets", "run_reference"]
+           "reference_plan", "reference_buckets", "run_reference",
+           "skewed_star", "clique6_triangle"]
+
+# the forced host device count of every sharded reference run
+HOST_DEVICES = 4
 
 _HERE = Path(__file__).resolve().parent
 _SRC = _HERE.parent / "src"
@@ -68,6 +88,38 @@ def _packing():
     return random_walk_query(data, 7, seed=35), data
 
 
+def skewed_star():
+    """(query, data): tests/test_shard_differential.py's skewed star. One
+    label-0 hub fans out to 100 label-1 mids with 3 label-2 leaves each;
+    with the hub as root every subtree hangs off one root candidate."""
+    from repro.core.graph import build_graph
+    nmid, nleaf = 100, 3
+    labels = [0] + [1] * nmid + [2] * (nmid * nleaf)
+    edges = [(0, 1 + i) for i in range(nmid)]
+    for i in range(nmid):
+        for j in range(nleaf):
+            edges.append((1 + i, 1 + nmid + i * nleaf + j))
+    data = build_graph(len(labels), edges, labels)
+    query = build_graph(3, [(0, 1), (1, 2)], [0, 1, 2])
+    return query, data
+
+
+def clique6_triangle():
+    """(query, data): a same-label triangle on a 6-clique, whose root
+    contained-vertex threshold of 2 exceeds some shards' partitions."""
+    from repro.core.graph import build_graph
+    n = 6
+    edges = [(i, j) for i in range(n) for j in range(i + 1, n)]
+    data = build_graph(n, edges, [0] * n)
+    query = build_graph(3, [(0, 1), (0, 2), (1, 2)], [0, 0, 0])
+    return query, data
+
+
+def _overflow_single():
+    data = synthetic_labeled_graph(60, 5.0, 3, seed=2, power_law=False)
+    return random_walk_query(data, 5, seed=12), data
+
+
 WORKLOADS = {
     "fig1": _fig1,
     "random0": lambda: random_pair(0),
@@ -77,6 +129,13 @@ WORKLOADS = {
     "synthetic": _synthetic,
     "packing": _packing,
     "failing": lambda: random_pair(7, qsize=6),
+    "random3": lambda: random_pair(3),
+    "random11": lambda: random_pair(11),
+    "random42": lambda: random_pair(42),
+    "random1234": lambda: random_pair(1234),
+    "star": skewed_star,
+    "clique6": clique6_triangle,
+    "overflow": _overflow_single,
 }
 
 
@@ -94,6 +153,10 @@ def _overflow_pair():
     return data, [q, q]
 
 
+def _pair(query, data):
+    return data, [query, query]
+
+
 def _failing_pair():
     """A second run of this pair at tile_rows=16 meets the failures the
     first one recorded."""
@@ -109,6 +172,9 @@ BATCH_WORKLOADS = {
     "union": _union_pair,
     "overflow": _overflow_pair,
     "failing": _failing_pair,
+    # tests/test_shard_differential.py's superbatch workload
+    "shard_batch": lambda: batch_workload(seed=2, n=220, n_queries=4, dup=2),
+    "clique6": lambda: _pair(*clique6_triangle()),
 }
 
 
@@ -134,7 +200,12 @@ def reference_buckets(name, *, encoding="cost", tile_rows=256):
 
 
 def workload(name):
-    """(query, data) reference Graphs of a named workload."""
+    """(query, data) reference Graphs of a named workload; "batch:i" is
+    query i of the multi-query workload "batch"."""
+    if ":" in name:
+        batch, i = name.split(":")
+        data, queries = BATCH_WORKLOADS[batch]()
+        return queries[int(i)], data
     return WORKLOADS[name]()
 
 
@@ -145,13 +216,14 @@ def port_graph(g):
                     for f in dataclasses.fields(Graph)})
 
 
-def reference_plan(name, *, encoding="cost"):
+def reference_plan(name, *, encoding="cost", order=None):
     """(cs, an, plan) of a named workload, built by the reference's numpy
     compile path."""
     from repro.core.plan import build_plan
     from repro.core.ref_engine import preprocess
     query, data = workload(name)
-    cs, an = preprocess(query, data, encoding=encoding)
+    cs, an = preprocess(query, data, encoding=encoding,
+                        order=None if order is None else list(order))
     return cs, an, build_plan(cs, an)
 
 
@@ -172,6 +244,12 @@ def _run_cases(cases):
         if kind == "stack":
             out.append(_run_stack(case))
             continue
+        if kind == "sharded":
+            out.append(_run_sharded(case))
+            continue
+        if kind == "matcher":
+            out.append(_run_matcher(case))
+            continue
         name = case.pop("workload")
         limit = case.pop("limit", 10 ** 9)
         encoding = case.pop("encoding", "cost")
@@ -185,8 +263,9 @@ def _run_cases(cases):
     return out
 
 
-def _run_superbatch(case):
+def _run_superbatch(case, mesh=None):
     import repro.core.scheduler as sched
+    from repro.core.shard import ShardedSuperbatchScheduler
     name = case.pop("workload")
     encoding = case.pop("encoding", "cost")
     limit = case.pop("limit", 10 ** 9)
@@ -200,7 +279,8 @@ def _run_superbatch(case):
         for indices, plans in reference_buckets(
                 name, encoding=encoding,
                 tile_rows=case.get("tile_rows", 256)):
-            sb = sched.SuperbatchScheduler(plans, **case)
+            sb = (sched.SuperbatchScheduler(plans, **case) if mesh is None
+                  else ShardedSuperbatchScheduler(plans, mesh=mesh, **case))
             for _ in range(runs):
                 counts, st, timed_out = sb.run(limit=limit,
                                                max_steps=max_steps)
@@ -211,6 +291,56 @@ def _run_superbatch(case):
     finally:
         sched.OVERFLOW_LIMIT = saved
         sched._PROGRAMS.clear()
+
+
+def _run_sharded(case):
+    """A sharded case (see the module docstring) on a reference mesh of
+    `mesh` of the forced host devices."""
+    import repro.core.scheduler as sched
+    from repro.core.engine import VectorEngine
+    from repro.launch.mesh import make_enum_mesh
+    mesh = make_enum_mesh(case.pop("mesh"))
+    assert mesh is not None and len(mesh.devices.flat) > 1, mesh
+    if case.pop("batch", False):
+        return _run_superbatch(case, mesh=mesh)
+    name = case.pop("workload")
+    limit = case.pop("limit", 10 ** 9)
+    encoding = case.pop("encoding", "cost")
+    order = case.pop("order", None)
+    runs = case.pop("runs", 1)
+    max_steps = case.pop("max_steps", None)
+    materialize = case.pop("materialize", False)
+    saved = sched.OVERFLOW_LIMIT
+    sched.OVERFLOW_LIMIT = case.pop("overflow_limit", saved)
+    try:
+        cs, an, plan = reference_plan(name, encoding=encoding, order=order)
+        eng = VectorEngine(cs, an, plan=plan, mesh=mesh, **case)
+        for _ in range(runs):
+            res = eng.run(limit=limit, max_steps=max_steps,
+                          materialize=materialize)
+    finally:
+        sched.OVERFLOW_LIMIT = saved
+    out = {"count": res.count, "timed_out": res.timed_out,
+           "stats": dataclasses.asdict(res.stats)}
+    if materialize:
+        out["embeddings"] = [sorted(e.items()) for e in res.embeddings]
+    return out
+
+
+def _run_matcher(case):
+    """A reference Matcher call on a named workload (see the module
+    docstring)."""
+    from repro.api import Dataset, Matcher, MatchOptions
+    opts = MatchOptions(**case.get("options", {}))
+    if case["call"] == "count":
+        query, data = workload(case["workload"])
+        outs = [Matcher(Dataset.from_graph(data)).count(query, opts)]
+    else:
+        data, queries = BATCH_WORKLOADS[case["workload"]]()
+        outs = Matcher(Dataset.from_graph(data)).match_many(
+            queries, opts, batch=case.get("batch", "auto"))
+    return [{"count": o.count, "stats": dataclasses.asdict(o.stats)}
+            for o in outs]
 
 
 def _run_stack(case):
@@ -241,6 +371,9 @@ def run_reference(cases, *, timeout=600):
         [str(_SRC), str(_HERE)] + ([env["PYTHONPATH"]]
                                    if env.get("PYTHONPATH") else []))
     env.setdefault("JAX_PLATFORMS", "cpu")
+    if any(c.get("kind") in ("sharded", "matcher") for c in cases):
+        env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " --xla_force_host_"
+                            f"platform_device_count={HOST_DEVICES}").strip()
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                            json.dumps(cases)], capture_output=True, text=True,
                           env=env, timeout=timeout)
@@ -257,12 +390,22 @@ CHIP_COMPAT = [("dblp", 1.0, 8), ("human", 1.0, 8), ("dblp", 0.02, 8)]
 CHIP_STATS = ("supersteps", "leaf_tiles", "packed_tiles", "cer_hits",
               "fail_hits", "bucket_recompiles")
 CHIP_COMPAT_STATS = ("bucketed_tiles", "dedup_unique", "device_steps")
+# chip_smoke.py's sharded phase: its dblp scale-1.0 queries (size, seed 7)
+# and the skewed star (tile_rows 16, all_black, order (0, 1, 2)) at these
+# lane counts, and the mix's five-query bucket at 4 lanes
+CHIP_SHARD_SIZES = (8, 16)
+CHIP_SHARD_LANES = (2, 4)
+CHIP_SHARD_SB_LANES = 4
 
 
 def chip_constants():
     """The reference's counters on chip_smoke.py's superbatch mix (one
     SuperbatchScheduler per bucket of two or more, default options,
-    limit 1,000,000) and compat counts (`use_cer_buffer=False`)."""
+    limit 1,000,000), compat counts (`use_cer_buffer=False`) and sharded
+    runs (every VectorStats field of a ShardedTileScheduler on each
+    CHIP_SHARD_SIZES query and the skewed star, and of a
+    ShardedSuperbatchScheduler on the mix's first bucket, over meshes of
+    the forced host devices)."""
     import jax
     import jax.experimental
     if not hasattr(jax.experimental, "enable_x64"):
@@ -298,11 +441,48 @@ def chip_constants():
         compat.append({"workload": [name, scale, size], "count": res.count,
                        **{k: getattr(res.stats, k)
                           for k in CHIP_COMPAT_STATS}})
-    return {"mix": mix, "compat": compat}
+    return {"mix": mix, "compat": compat,
+            "sharded": _chip_sharded(m, buckets, limit)}
+
+
+def _chip_sharded(m, buckets, limit):
+    from repro.core.engine import VectorEngine
+    from repro.core.ref_engine import preprocess
+    from repro.core.scheduler import _PROGRAMS
+    from repro.core.shard import ShardedSuperbatchScheduler
+    from repro.launch.mesh import make_enum_mesh
+
+    def run(cs, an, plan, lanes, **kw):
+        res = VectorEngine(cs, an, plan=plan, mesh=make_enum_mesh(lanes),
+                           **kw).run(limit=limit)
+        return {"count": res.count, "stats": dataclasses.asdict(res.stats)}
+
+    out = {"dblp": {}, "star": {}}
+    for size in CHIP_SHARD_SIZES:
+        cq = m.compile(m.dataset.random_query(size=size, seed=7))
+        out["dblp"][str(size)] = {
+            str(s): run(cq.cs, cq.an, cq.plan, s) for s in CHIP_SHARD_LANES}
+    query, data = skewed_star()
+    cs, an = preprocess(query, data, encoding="all_black", order=[0, 1, 2])
+    from repro.core.plan import build_plan
+    plan = build_plan(cs, an)
+    out["star"] = {str(s): run(cs, an, plan, s, tile_rows=16)
+                   for s in CHIP_SHARD_LANES}
+    items = next(v for v in buckets.values() if len(v) >= 5)
+    _PROGRAMS.clear()
+    counts, st, _ = ShardedSuperbatchScheduler(
+        [p for _, p in items],
+        mesh=make_enum_mesh(CHIP_SHARD_SB_LANES)).run(limit=limit)
+    out["superbatch"] = {"indices": [i for i, _ in items], "counts": counts,
+                         "stats": dataclasses.asdict(st)}
+    return out
 
 
 if __name__ == "__main__":
     if sys.argv[1] == "chip-constants":
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_"
+            f"device_count={HOST_DEVICES}").strip()
         print(json.dumps(chip_constants()))
     else:
         print(json.dumps(_run_cases(json.loads(sys.argv[1]))))
