@@ -154,6 +154,32 @@ Phases, in order; any failure exits non-zero:
               within LM_32K_F32_ATOL, and the bfloat16 step with the kernel
               is no farther from the float32 step than LM_32K_BF16_RATIO
               times the plain bfloat16 step is; peak device memory;
+  5b. LM prefill and training — qwen2-1.5b's `steps["prefill"]` and
+              `steps["train"]` (run after phase 6's timing, once the
+              decode_32k cache is freed): the reduced model in float32
+              on the card against the CPU (prefill logits within 1e-4;
+              one train step's loss and gnorm within 1e-5 relative and
+              its parameters within 1e-5; a `TrainLoop` of 12 steps at
+              batch 2 x 32 with faults at steps 5 and 9 and checkpoints
+              every 3 gives 2 restarts and ends within 1e-4 of a
+              fault-free run on the card; a checkpoint saved from the
+              card loads onto the CPU bit for bit). Then at full width,
+              float32 weights from seed 0, bfloat16 activations:
+              `prefill_32k` at batch 1 (the shape's 32 rows cut to 1),
+              logits finite of shape (1, 1, 151936), cold and warm ms,
+              tokens/s, peak memory and the reference's model_flops over
+              the time as a share of the dense bf16 peak; prefill over a
+              64-token prefix at batch 2 against the same tokens fed one
+              by one through the decode step with the flash_decode kernel
+              (float32, last logits within LM_32K_F32_ATOL, 28 x 64
+              launches); 3 `train_4k` steps at batch 4 (256 cut to 4,
+              grad_accum 4: microbatches of one row) on one repeated
+              batch, loss and gnorm finite and the third loss below the
+              first, ms a step warm, tokens/s, 6·N·tokens over the time
+              as a share of the bf16 peak, peak memory. Printed, not
+              asserted: one layer of prefill_32k's attention (B 1, S
+              32,768, 12/2 heads, D 128, causal, bf16) through
+              `flash_attention` beside `scaled_dot_product_attention`;
   6. timing — each kernel's median device time at its path's shapes beside
               its plain version's, its bound and, for flash_decode, the
               time of `scaled_dot_product_attention`, the achieved bytes/s
@@ -456,6 +482,25 @@ LM_32K_F32_ATOL = 1e-3
 # step may be at most this many times as far from it (RMS over the logits)
 # as the plain bfloat16 step is, i.e. add no more error than bfloat16 does.
 LM_32K_BF16_RATIO = 2.0
+# Phase 5b: qwen2-1.5b prefill and training, float32 weights from seed 0.
+# prefill_32k's 32 rows and train_4k's 256 are cut to what one card holds
+# beside the float32 optimizer state (params, grads, the accumulation
+# buffer, m and v: 30.8 GB); train_4k's grad_accum 4 then makes
+# microbatches of one row.
+PREFILL_SHAPE, PREFILL_BATCH = "prefill_32k", 1
+TRAIN_SHAPE, TRAIN_BATCH, TRAIN_STEPS = "train_4k", 4, 3
+# prefill against the decode path: a 64-token prefix at batch 2, float32
+# activations and cache; the last logits held at LM_32K_F32_ATOL, the
+# limit of the decode kernel against the plain attention at this width
+# (float32 sums in another order, 28 layers deep: here the products run
+# as one GEMM over 128 rows against 64 GEMMs over 2)
+XCHECK_TOKENS, XCHECK_BATCH = 64, 2
+# card against CPU on the reduced model, float32 (what the CPU tests see
+# against the JAX package, with room for another order of sums):
+# a train step's loss and gnorm relative, its parameters absolute
+TRAIN_F32_RTOL, TRAIN_F32_PARAM_ATOL = 1e-5, 1e-5
+REPLAY_ATOL = 1e-4                # a replayed run against a fault-free one
+BF16_PEAK_FLOPS = 989e12          # H100 SXM dense bf16, NVIDIA data sheet
 
 
 def card_line() -> str:
@@ -2367,6 +2412,268 @@ def time_kernels(bi, ref, cq, dev, launches, errs, floors) -> list:
     return out
 
 
+def check_lm_train_reduced(build_bundle, trainer, ft, ckpt, dev,
+                           tmp: str) -> dict:
+    """Phase 5b.1: the reduced qwen2-1.5b in float32, card against CPU:
+    prefill logits, one train step, a supervised run with faults, and a
+    checkpoint written from the card and read onto the CPU."""
+    f32 = torch.float32
+    cpu = build_bundle(LM_ARCH, reduced=True, device="cpu")
+    card = build_bundle(LM_ARCH, reduced=True, device=dev)
+    m_cpu = cpu.init_fn(0)
+    m_card = card.init_fn(1)
+    m_card.load_state_dict(m_cpu.state_dict())
+    tokens = cpu.make_inputs(PREFILL_SHAPE, seed=0)["tokens"]
+    want = cpu.steps["prefill"](m_cpu, {"tokens": tokens}, dtype=f32)
+    got = card.steps["prefill"](m_card, {"tokens": tokens.to(dev)},
+                                dtype=f32).cpu()
+    prefill_err = float((got - want).abs().max())
+    if got.shape != want.shape or not prefill_err <= LM_F32_ATOL:
+        raise SystemExit(f"reduced prefill: card and CPU differ "
+                         f"(shape {tuple(got.shape)}, max_abs_err "
+                         f"{prefill_err})")
+    batch = cpu.make_inputs(TRAIN_SHAPE, seed=0)
+    p_cpu = dict(m_cpu.named_parameters())
+    p_card = dict(m_card.named_parameters())
+    s_cpu, s_card = cpu.optimizer.init(p_cpu), card.optimizer.init(p_card)
+    _, s_cpu, met_cpu = cpu.steps["train"](m_cpu, s_cpu, batch, dtype=f32)
+    _, s_card, met_card = card.steps["train"](
+        m_card, s_card, {"tokens": batch["tokens"].to(dev)}, dtype=f32)
+    rel = {k: abs(float(met_card[k]) - float(met_cpu[k]))
+           / abs(float(met_cpu[k])) for k in ("loss", "gnorm")}
+    param_err = max(float((p_card[k].detach().cpu() - p.detach()).abs().max())
+                    for k, p in p_cpu.items())
+    if not (max(rel.values()) <= TRAIN_F32_RTOL
+            and param_err <= TRAIN_F32_PARAM_ATOL):
+        raise SystemExit(f"reduced train step: card and CPU differ "
+                         f"(relative {rel}, parameters max_abs_err "
+                         f"{param_err})")
+    loops = {}
+    for name, injector in (("faults", ft.FaultInjector(fail_at={5, 9})),
+                           ("clean", None)):
+        loops[name] = trainer.TrainLoop(
+            arch=LM_ARCH, reduced=True, n_steps=12, batch=2, seq=32,
+            ckpt_dir=os.path.join(tmp, name), ckpt_every=3,
+            device=dev).run(injector=injector)
+    faults, clean = loops["faults"], loops["clean"]
+    replay_err = abs(faults.history[-1]["loss"] - clean.history[-1]["loss"])
+    if (faults.restarts, clean.restarts) != (2, 0) \
+            or not replay_err <= REPLAY_ATOL:
+        raise SystemExit(f"supervised run on the card: restarts "
+                         f"{faults.restarts} and {clean.restarts}, final "
+                         f"losses {faults.history[-1]['loss']} and "
+                         f"{clean.history[-1]['loss']}")
+    state = {"params": p_card, "opt": s_card}
+    ckpt.save_checkpoint(os.path.join(tmp, "card"), 1, state)
+    template = {"params": {k: torch.empty_like(p, device="cpu")
+                           for k, p in p_card.items()},
+                "opt": {"m": {k: torch.empty_like(p, device="cpu")
+                              for k, p in s_card["m"].items()},
+                        "v": {k: torch.empty_like(p, device="cpu")
+                              for k, p in s_card["v"].items()},
+                        "step": torch.empty((), dtype=torch.int32)}}
+    restored, _ = ckpt.load_checkpoint(os.path.join(tmp, "card"), template,
+                                       device="cpu")
+    flat, back = ckpt._flatten(state), ckpt._flatten(restored)
+    if flat.keys() != back.keys() or not all(
+            back[k].device.type == "cpu"
+            and torch.equal(back[k], v.detach().cpu()) for k, v in flat.items()):
+        raise SystemExit("a checkpoint saved from the card did not load "
+                         "onto the CPU bit for bit")
+    return {"prefill_max_abs_err": prefill_err,
+            "train_rel_err": rel, "train_param_max_abs_err": param_err,
+            "restarts": faults.restarts, "replay_loss_err": replay_err,
+            "replayed_steps": [h["step"] for h in faults.history],
+            "checkpoint_leaves": len(flat)}
+
+
+def drive_prefill_32k(bundle, model, dev) -> dict:
+    """Phase 5b.2: `steps["prefill"]` on prefill_32k at batch 1, bfloat16
+    activations; a cold call, then a warm one."""
+    from repro_torch.config import LM_SHAPES
+    shape = LM_SHAPES[PREFILL_SHAPE]
+    inputs = bundle.make_inputs(PREFILL_SHAPE, seed=0, batch=PREFILL_BATCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = bundle.steps["prefill"](model, inputs)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    cfg = bundle.cfg
+    if tuple(logits.shape) != (PREFILL_BATCH, 1, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"prefill_32k logits: shape {tuple(logits.shape)}, "
+                         f"finite {bool(torch.isfinite(logits).all())}")
+    tokens = PREFILL_BATCH * shape["seq_len"]
+    flops = (bundle.model_flops(PREFILL_SHAPE) * PREFILL_BATCH
+             / shape["global_batch"])
+    s = shape["seq_len"]
+    attn_flops = (cfg.n_layers * 4 * PREFILL_BATCH * cfg.n_heads * s * s
+                  * cfg.head_dim / 2)
+    return {"batch": PREFILL_BATCH, "batch_cut_from": shape["global_batch"],
+            "seq": s, "ms": ms, "tokens_per_s": tokens / (ms[-1] / 1e3),
+            "model_flops": flops,
+            "bf16_peak_share": flops / (ms[-1] / 1e3) / BF16_PEAK_FLOPS,
+            "causal_attention_flops": attn_flops,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+def prefill_against_decode(bundle, model, fd, dev) -> dict:
+    """Phase 5b.2: prefill over a 64-token prefix at batch 2 against the
+    same tokens fed one by one through the decode step with the
+    flash_decode kernel, float32 activations and cache."""
+    f32 = torch.float32
+    tokens = bundle.make_inputs(PREFILL_SHAPE, seed=1, batch=XCHECK_BATCH)[
+        "tokens"][:, :XCHECK_TOKENS].contiguous()
+    want = bundle.steps["prefill"](model, {"tokens": tokens}, dtype=f32)
+    caches = bundle.init_caches(XCHECK_BATCH, XCHECK_TOKENS, dtype=f32)
+    lengths = torch.zeros(XCHECK_BATCH, dtype=torch.int32, device=dev)
+    fd.reset_launches()
+    for t in range(XCHECK_TOKENS):
+        logits, caches = bundle.steps["decode"](
+            model, caches, {"token": tokens[:, t], "lengths": lengths},
+            dtype=f32)
+        lengths = lengths + 1
+    torch.cuda.synchronize()
+    launches = fd.flash_decode.launches
+    expect = bundle.cfg.n_layers * XCHECK_TOKENS
+    err = float((logits - want[:, 0]).abs().max())
+    if launches != expect or not err <= LM_32K_F32_ATOL:
+        raise SystemExit(f"prefill against decode: {launches} flash_decode "
+                         f"launches (expected {expect}), last logits "
+                         f"max_abs_err {err} (limit {LM_32K_F32_ATOL})")
+    return {"batch": XCHECK_BATCH, "tokens": XCHECK_TOKENS,
+            "flash_decode_launches": launches, "max_abs_err": err,
+            "logits_max_abs": float(want.abs().max()),
+            "same_argmax": bool(torch.equal(logits.argmax(-1),
+                                            want[:, 0].argmax(-1)))}
+
+
+def drive_train_4k(bundle, model, trainer, dev) -> dict:
+    """Phase 5b.3: TRAIN_STEPS `steps["train"]` on train_4k at batch 4
+    over one repeated batch, bfloat16 activations."""
+    from repro_torch.config import LM_SHAPES
+    shape = LM_SHAPES[TRAIN_SHAPE]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    batch_fn = trainer.lm_token_stream(bundle.cfg.vocab, TRAIN_BATCH,
+                                       shape["seq_len"], cycle=1, device=dev)
+    state = bundle.optimizer.init(dict(model.named_parameters()))
+    losses, gnorms, ms = [], [], []
+    for step in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, metrics = bundle.steps["train"](model, state,
+                                                  batch_fn(step))
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["gnorm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()
+            and losses[-1] < losses[0]):
+        raise SystemExit(f"train_4k: losses {losses}, gnorms {gnorms}")
+    warm = float(np.median(ms[1:]))
+    tokens = TRAIN_BATCH * shape["seq_len"]
+    flops = (bundle.model_flops(TRAIN_SHAPE) * TRAIN_BATCH
+             / shape["global_batch"])
+    return {"batch": TRAIN_BATCH, "batch_cut_from": shape["global_batch"],
+            "seq": shape["seq_len"], "grad_accum": bundle.cfg.grad_accum,
+            "losses": losses, "gnorms": gnorms, "ms": ms, "warm_ms": warm,
+            "tokens_per_s": tokens / (warm / 1e3), "model_flops": flops,
+            "bf16_peak_share": flops / (warm / 1e3) / BF16_PEAK_FLOPS,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+def time_prefill_attention(attn_mod, cfg, dev) -> dict:
+    """Phase 5b.4: one layer of prefill_32k's attention, `flash_attention`
+    beside `scaled_dot_product_attention` on the same bfloat16 inputs."""
+    import torch.nn.functional as F
+    from repro_torch.config import LM_SHAPES
+    s = LM_SHAPES[PREFILL_SHAPE]["seq_len"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((PREFILL_BATCH, s, h, cfg.head_dim),
+                           generator=gen, device=dev, dtype=torch.bfloat16)
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+
+    def flash():
+        return attn_mod.flash_attention(q, k, v, causal=True,
+                                        q_chunk=cfg.q_chunk,
+                                        k_chunk=cfg.k_chunk)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    with torch.no_grad():
+        diff = float((flash().float() - sdpa().float()).abs().max())
+        flash_ms = median_ms(flash, reps=3, iters=1)
+        sdpa_ms = median_ms(sdpa, reps=5, iters=5)
+    flops = 4 * PREFILL_BATCH * cfg.n_heads * s * s * cfg.head_dim / 2
+    return {"shape": [PREFILL_BATCH, s, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.head_dim], "causal_flops": flops,
+            "flash_attention_ms": flash_ms, "sdpa_ms": sdpa_ms,
+            "flash_over_sdpa": flash_ms / sdpa_ms,
+            "flash_tflops": flops / flash_ms / 1e9,
+            "sdpa_tflops": flops / sdpa_ms / 1e9, "max_abs_diff": diff}
+
+
+def run_phase_5b(dev, card: str) -> dict:
+    """Phase 5b: LM prefill and training (module docstring)."""
+    import tempfile
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.api import build_bundle
+    from repro_torch.nn import attention as attn_mod
+    from repro_torch.runtime import ft
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import trainer
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        red = check_lm_train_reduced(build_bundle, trainer, ft, ckpt, dev,
+                                     tmp)
+    print("lm train reduced " + json.dumps(red), flush=True)
+    print(f"reduced {LM_ARCH} on the card against the CPU, float32: "
+          f"prefill max_abs_err {red['prefill_max_abs_err']:.3g}, train "
+          f"step relative {red['train_rel_err']}, parameters "
+          f"{red['train_param_max_abs_err']:.3g}; {red['restarts']} "
+          f"restarts replayed to {red['replay_loss_err']:.3g} of a "
+          f"fault-free run; checkpoint card -> CPU bit for bit "
+          f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    t1 = time.perf_counter()
+    bundle = build_bundle(LM_ARCH, device=dev)
+    model = bundle.init_fn(0)
+    torch.cuda.synchronize()
+    print(f"{LM_ARCH}: {bundle.cfg.n_params():,} parameters in float32, "
+          f"init {time.perf_counter() - t1:.3f} s", flush=True)
+    pre = drive_prefill_32k(bundle, model, dev)
+    print("lm prefill_32k " + json.dumps(pre), flush=True)
+    print(f"prefill_32k on {card}: batch {pre['batch']} (cut from "
+          f"{pre['batch_cut_from']}) x {pre['seq']} tokens, cold "
+          f"{pre['ms'][0]:.1f} ms, warm {pre['ms'][1]:.1f} ms, "
+          f"{pre['tokens_per_s']:.0f} tokens/s, "
+          f"{100 * pre['bf16_peak_share']:.3f} % of the bf16 peak, peak "
+          f"memory {pre['peak_bytes']:,} B", flush=True)
+    xc = prefill_against_decode(bundle, model, fd, dev)
+    print("lm prefill vs decode " + json.dumps(xc), flush=True)
+    tr = drive_train_4k(bundle, model, trainer, dev)
+    print("lm train_4k " + json.dumps(tr), flush=True)
+    print(f"train_4k on {card}: batch {tr['batch']} (cut from "
+          f"{tr['batch_cut_from']}) x {tr['seq']}, grad_accum "
+          f"{tr['grad_accum']}, losses {tr['losses']}, warm "
+          f"{tr['warm_ms']:.1f} ms a step, {tr['tokens_per_s']:.0f} "
+          f"tokens/s, {100 * tr['bf16_peak_share']:.3f} % of the bf16 "
+          f"peak, peak memory {tr['peak_bytes']:,} B", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    at = time_prefill_attention(attn_mod, bundle.cfg, dev)
+    print(f"prefill attention on {card}: " + json.dumps(at), flush=True)
+    print(f"phase 5b in {time.perf_counter() - t0:.3f} s", flush=True)
+    return {"reduced": red, "prefill_32k": pre, "prefill_vs_decode": xc,
+            "train_4k": tr, "attention": at}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2585,6 +2892,11 @@ def main() -> int:
          "serve loop": serve_res["held_max_abs_err"],
          "decode_32k step": d32k["vs_plain"]["attention_held"]
                             ["max_abs_err"]}))
+
+    # phase 5b after the timing, with the decode_32k cache freed
+    del d32k, model
+    torch.cuda.empty_cache()
+    run_phase_5b(dev, card)
 
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.3f} s",
           flush=True)

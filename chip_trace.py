@@ -1,6 +1,7 @@
 """Where the time of the port's paths goes, on one CUDA card.
 
-    python3 chip_trace.py [--matcher-only] [--superbatch] [--src DIR]
+    python3 chip_trace.py [--matcher-only] [--superbatch] [--lm-train]
+                          [--src DIR]
 
 Runs `repro_torch.api.Matcher.count(engine="vector")` on synthetic dblp at
 scale 1.0 with `random_query(size=8, seed=7)`, once to warm up and then
@@ -23,7 +24,15 @@ with random values, lengths from `make_inputs(seed=0)`), each after a
 warm-up step. It prints one JSON line per window: wall time, the device's
 busy time (sum of kernel times; one stream, so kernels do not overlap),
 the busy share, the number of kernel launches, and the kernels that took
-the most device time. Needs CUDA; exits non-zero without it.
+the most device time. `--lm-train` profiles instead full-width
+qwen2-1.5b prefill and training (float32 weights from seed 0, bfloat16
+activations): one warm `steps["train"]` on `train_4k` at batch 1 (one
+microbatch of 4,096 tokens and one AdamW update; chip_smoke.py's batch-4
+step runs four such microbatches) and one warm `steps["prefill"]` at
+batch 1 on the first 8,192 tokens of `prefill_32k` (a quarter of the
+sequence, ~1/14 of its attention blocks, to keep the trace small), each
+beside the median wall of 3 unprofiled calls. Needs CUDA; exits non-zero
+without it.
 """
 from __future__ import annotations
 
@@ -91,6 +100,37 @@ def trace_lm(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def trace_lm_train(card: str) -> None:
+    from repro_torch.models.api import build_bundle
+    bundle = build_bundle("qwen2-1.5b")
+    model = bundle.init_fn(0)
+    state = bundle.optimizer.init(dict(model.named_parameters()))
+    train = bundle.make_inputs("train_4k", seed=0, batch=1)
+    prefill = {"tokens": bundle.make_inputs("prefill_32k", seed=0, batch=1)
+               ["tokens"][:, :8192].contiguous()}
+    cases = [("train_4k step", train["tokens"].shape,
+              lambda: bundle.steps["train"](model, state, train)[2]),
+             ("prefill", prefill["tokens"].shape,
+              lambda: bundle.steps["prefill"](model, prefill))]
+    for name, shape, fn in cases:
+        fn()                                                  # warm
+        walls = []
+        for _ in range(3):                   # unprofiled, synchronised
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.reset_peak_memory_stats()
+        _, stats = profiled(fn)
+        print(json.dumps({"card": card, "path": f"lm {name}",
+                          "tokens": list(shape),
+                          "ms_unprofiled": sorted(walls)[1],
+                          "ms_unprofiled_all": walls,
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          **stats}), flush=True)
+
+
 def trace_superbatch(api, bi, ds, card: str, src: str) -> None:
     from chip_smoke import MIX
     queries = [ds.random_query(size=size, seed=seed) for size, seed in MIX]
@@ -130,6 +170,7 @@ def main() -> int:
                                              / "src"))
     parser.add_argument("--matcher-only", action="store_true")
     parser.add_argument("--superbatch", action="store_true")
+    parser.add_argument("--lm-train", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_trace: no CUDA device", file=sys.stderr)
@@ -142,6 +183,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    if args.lm_train:
+        trace_lm_train(card)
+        return 0
     ds = api.Dataset.synthetic("dblp", scale=1.0)
     if args.superbatch:
         trace_superbatch(api, bi, ds, card, args.src)

@@ -2,12 +2,14 @@
 
 A copy of `LM_SHAPES` and of `LMConfig` from the JAX package's
 `config.py` (pure dataclasses; the port imports nothing of that package).
-`LMConfig` keeps the fields that the decode path and `n_params` read; the
-training, sharding and chunking knobs come with the slices that use them
-(ROADMAP.md Queue 1). Every architecture the port serves has a module in
-`repro_torch/configs/` with `config()` (the published hyperparameters) and
-`reduced()` (a tiny same-family config for CPU tests);
-`configs/registry.py` resolves `--arch`.
+`LMConfig` keeps the fields that the decode, prefill and train paths and
+`n_params` read, with the reference's defaults; the sharding and MoE
+dispatch knobs (`seq_parallel`, `moe_group`, `moe_pad_to`) and `unroll`
+come with the slices that use them (ROADMAP.md Queue 1). Every
+architecture the port serves has a module in `repro_torch/configs/` with
+`config()` (the published hyperparameters) and `reduced()` (a tiny
+same-family config for CPU tests); `configs/registry.py` resolves
+`--arch`.
 """
 from __future__ import annotations
 
@@ -30,9 +32,16 @@ class LMConfig:
     attention: str = "gqa"           # "gqa" | "mla"
     qkv_bias: bool = False
     rope_frac: float = 1.0           # chatglm3 '2d rope' = 0.5
+    max_seq: int = 524_288
     moe_experts: int = 0
     moe_top_k: int = 0
     tie_embeddings: bool = False
+    remat: bool = True               # checkpoint each block in the backward
+    grad_accum: int = 1              # microbatches per train step
+    loss_chunk: int = 1024           # sequence chunking of the CE loss
+    cp_degree: int = 0               # context-parallel attention blocks
+    q_chunk: int = 512               # flash_attention query block
+    k_chunk: int = 1024              # flash_attention key block
     # MLA fields (read by n_params only: MLA blocks are not ported yet)
     q_lora_rank: int = 0
     kv_lora_rank: int = 0
@@ -71,7 +80,7 @@ class LMConfig:
         return dense_total + L * self.moe_top_k * 3 * d * f
 
 
-# (shape_id → spec); the port serves the "decode" kinds so far.
+# (shape_id → spec)
 LM_SHAPES: dict[str, dict[str, Any]] = {
     "train_4k":    {"kind": "train",   "seq_len": 4096,    "global_batch": 256},
     "prefill_32k": {"kind": "prefill", "seq_len": 32_768,  "global_batch": 32},

@@ -1,5 +1,11 @@
-"""GQA attention for the LM decode path: the four projections, the KV
-cache, and one decode step over the cache.
+"""GQA attention for the LM: the four projections, flash-style chunked
+causal attention for train and prefill, the KV cache, and one decode step
+over the cache.
+
+`flash_attention` is the reference's exact online softmax over query and
+key blocks (plain jnp there, plain torch here): float32 scores and
+accumulators, each query block's key sweep under activation checkpointing
+so the backward keeps O(S) memory.
 
 The reference writes the new K/V row with a functional `.at[].set`, which
 copies the cache per layer. Here the cache is preallocated once and the
@@ -9,15 +15,102 @@ the hand-written CUDA kernel on the card, its plain version on the CPU.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from . import core
 
-__all__ = ["GQA", "init_kv_cache"]
+__all__ = ["GQA", "flash_attention", "init_kv_cache"]
+
+_NEG = -1e30
 
 
+# --------------------------------------------------------------------- flash
+def _flash_block(q, k, v, m, l, acc, mask):
+    """One (qc x kc) block update of the online softmax. q (B,N,G,qc,D),
+    k/v (B,N,kc,D), all float32; mask (qc, kc) or None (every pair
+    attends)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bngqd,bnkd->bngqk", q, k) * scale
+    if mask is not None:
+        s = torch.where(mask, s, _NEG)
+    m_new = torch.maximum(m, s.amax(-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = l * alpha + p.sum(-1)
+    acc_new = acc * alpha[..., None] + torch.einsum("bngqk,bnkd->bngqd", p, v)
+    return m_new, l_new, acc_new
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_chunk: int = 512,
+                    k_chunk: int = 1024) -> torch.Tensor:
+    """q (B,S,H,D); k, v (B,S,N,D) with H = N·G (query head h reads KV
+    head h // G). Exact, O(S) memory; returns (B,S,H,D) in q's dtype.
+
+    The sequence is padded to multiples of the chunks; padded keys are
+    masked with -1e30, padded queries dropped. Query heads are grouped as
+    (B,N,G,qc,D) against (B,N,kc,D): K and V are never repeated. With
+    `causal`, key blocks wholly above a query block's diagonal are
+    skipped: they would add exp(-1e30 - m) = 0 to every sum, because key
+    block 0 gives every causal row a finite running max first, so the
+    result is unchanged."""
+    b, s, h, d = q.shape
+    n = k.shape[2]
+    g = h // n
+    qc, kc = min(q_chunk, s), min(k_chunk, s)
+    nq, nk = -(-s // qc), -(-s // kc)
+    # (nq, B, N, G, qc, D) and (nk, B, N, kc, D), float32 as the
+    # reference's scores and accumulators are
+    qb = (nn.functional.pad(q.float(), (0, 0, 0, 0, 0, nq * qc - s))
+          .reshape(b, nq, qc, n, g, d).permute(1, 0, 3, 4, 2, 5)
+          .contiguous())
+    kb, vb = ((nn.functional.pad(t.float(), (0, 0, 0, 0, 0, nk * kc - s))
+               .reshape(b, nk, kc, n, d).permute(1, 0, 3, 2, 4).contiguous())
+              for t in (k, v))
+    pos = torch.arange(max(nq * qc, nk * kc), device=q.device)
+
+    def k_sweep(qi, qblk, kb, vb):
+        q0 = qi * qc
+        m = torch.full((b, n, g, qc), _NEG, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, n, g, qc, d), dtype=torch.float32,
+                          device=q.device)
+        for ki in range(nk):
+            k0 = ki * kc
+            if causal and k0 > q0 + qc - 1:
+                break                   # this block and all later ones
+            mask = None
+            if k0 + kc > s:             # padded keys in this block
+                mask = (pos[k0:k0 + kc] < s)[None, :]
+            if causal and k0 + kc - 1 > q0:     # crosses the diagonal
+                below = pos[q0:q0 + qc, None] >= pos[None, k0:k0 + kc]
+                mask = below if mask is None else mask & below
+            m, l, acc = _flash_block(qblk, kb[ki], vb[ki], m, l, acc, mask)
+        return acc / torch.clamp(l, min=1e-30)[..., None]
+
+    outs = []
+    for qi in range(nq):
+        if torch.is_grad_enabled():
+            # rematerialise the sweep in the backward (the reference's
+            # jax.checkpoint): autograd would otherwise keep every block's
+            # (qc, kc) softmax, O(S^2 / qc / kc) of them
+            o = checkpoint(k_sweep, qi, qb[qi], kb, vb, use_reentrant=False)
+        else:
+            o = k_sweep(qi, qb[qi], kb, vb)
+        outs.append(o)
+    # (nq, B, N, G, qc, D) -> (B, S, H, D)
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(
+        b, nq * qc, h, d)[:, :s]
+    return out.to(q.dtype)
+
+
+# ----------------------------------------------------------------------- GQA
 class GQA(nn.Module):
     """Grouped-query attention: n_heads query heads share n_kv KV heads."""
 
@@ -46,6 +139,19 @@ class GQA(nn.Module):
         cos, sin = core.rope_angles(d, positions)
         return core.apply_rope(q, cos, sin), core.apply_rope(k, cos, sin), v
 
+    def forward(self, x: torch.Tensor, *, q_chunk: int = 512,
+                k_chunk: int = 1024) -> torch.Tensor:
+        """Causal self-attention over the whole sequence (the reference's
+        `gqa_attention`): x (B, S, d_model) at positions 0..S-1 → y
+        (B, S, d_model)."""
+        b, s, _ = x.shape
+        q, k, v = self.qkv(x, torch.arange(s, device=x.device))
+        o = flash_attention(q, k, v, causal=True, q_chunk=q_chunk,
+                            k_chunk=k_chunk)
+        return core.dense(self.wo, o.reshape(b, s, self.n_heads
+                                             * self.head_dim))
+
+    @torch.no_grad()
     def decode(self, x: torch.Tensor, k_cache: torch.Tensor,
                v_cache: torch.Tensor, lengths: torch.Tensor, *,
                use_kernel: bool = True) -> torch.Tensor:

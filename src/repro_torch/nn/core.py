@@ -1,10 +1,11 @@
-"""NN primitives of the LM decode path: dense, RMSNorm, rotary, SwiGLU,
+"""NN primitives of the LM path: dense, RMSNorm, rotary, SwiGLU,
 embeddings, and their initialisers.
 
 Each layer is a small `nn.Module` whose parameters carry the JAX package's
 names (`w`, `b`, `g`, `table`, and a dense weight kept as (d_in, d_out)),
 so a JAX parameter tree maps onto a state dict by path
-(`repro_torch.models.convert`). The functions reproduce the reference's
+(`repro_torch.models.convert`). Every parameter is trainable; the decode
+path runs under `torch.no_grad()`. The functions reproduce the reference's
 numerics:
 
 - `dense` casts the weight to x's dtype before the product;
@@ -45,10 +46,9 @@ class Dense(nn.Module):
         super().__init__()
         self.w = nn.Parameter(normal_init(gen, (d_in, d_out),
                                           1.0 / math.sqrt(d_in),
-                                          device=device, dtype=dtype),
-                              requires_grad=False)
-        self.b = (nn.Parameter(torch.zeros(d_out, device=device, dtype=dtype),
-                               requires_grad=False) if bias else None)
+                                          device=device, dtype=dtype))
+        self.b = (nn.Parameter(torch.zeros(d_out, device=device, dtype=dtype))
+                  if bias else None)
 
 
 def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
@@ -62,8 +62,7 @@ def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
 class RMSNorm(nn.Module):
     def __init__(self, d: int, *, device, dtype=torch.float32):
         super().__init__()
-        self.g = nn.Parameter(torch.ones(d, device=device, dtype=dtype),
-                              requires_grad=False)
+        self.g = nn.Parameter(torch.ones(d, device=device, dtype=dtype))
 
 
 def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -122,8 +121,7 @@ class Embedding(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.table = nn.Parameter(normal_init(gen, (vocab, d), 0.02,
-                                              device=device, dtype=dtype),
-                                  requires_grad=False)
+                                              device=device, dtype=dtype))
 
 
 def embed(p: Embedding, ids: torch.Tensor, dtype) -> torch.Tensor:

@@ -1,10 +1,17 @@
-"""Decoder-only transformer for LM decode serving: pre-norm GQA blocks in a
-`ModuleList` (the reference scans over stacked layer parameters), SwiGLU
-FFN, and the LM head tied to the embedding.
+"""Decoder-only transformer: pre-norm GQA blocks in a `ModuleList` (the
+reference scans over stacked layer parameters), SwiGLU FFN, and the LM
+head tied to the embedding; the forward pass, the chunked next-token
+loss, prefill logits and the decode step.
 
     model = lm_init(cfg, seed=0, device="cpu")
+    loss, metrics = lm_loss(model, tokens)        # differentiable
+    logits = lm_prefill_logits(model, tokens)     # (B, 1, V)
     caches = lm_init_caches(cfg, batch, max_len, device="cpu")
     logits, caches = lm_decode_step(model, token, caches, lengths)
+
+With `cfg.remat` each block runs under `torch.utils.checkpoint` when
+gradients are on (the reference's `jax.checkpoint`); prefill and decode
+run under `torch.no_grad()`.
 
 Caches are stacked over layers, {"k", "v"} each (L, B, S, Hkv, D), as the
 reference stacks them; layer i reads and writes the contiguous view [i].
@@ -13,12 +20,14 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import LMConfig
 from . import attention as attn
 from . import core
 
-__all__ = ["Block", "LM", "lm_init", "lm_init_caches", "lm_decode_step"]
+__all__ = ["Block", "LM", "lm_init", "lm_forward", "lm_loss",
+           "lm_prefill_logits", "lm_init_caches", "lm_decode_step"]
 
 
 class Block(nn.Module):
@@ -30,6 +39,11 @@ class Block(nn.Module):
                 f"{cfg.name}: only dense GQA blocks with full rotary are "
                 "ported; MLA, MoE and rope_frac < 1 wait for later slices "
                 "(ROADMAP.md Queue 1)")
+        if cfg.cp_degree:
+            raise NotImplementedError(
+                f"{cfg.name}: cp_degree {cfg.cp_degree}: context-parallel "
+                "attention (the reference's cp_attention) waits for "
+                "distributed/context_parallel (ROADMAP.md Queue 1)")
         kw = dict(gen=gen, device=device, dtype=dtype)
         self.ln1 = core.RMSNorm(cfg.d_model, device=device, dtype=dtype)
         self.ln2 = core.RMSNorm(cfg.d_model, device=device, dtype=dtype)
@@ -78,6 +92,68 @@ def lm_init_caches(cfg: LMConfig, batch: int, max_len: int, *,
 
 def _logits(model: LM, h: torch.Tensor) -> torch.Tensor:
     return h @ model.embed.table.to(h.dtype).T
+
+
+def _block_apply(blk: Block, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    y = core.rmsnorm(blk.ln1, x)
+    x = x + blk.attn(y, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
+    y = core.rmsnorm(blk.ln2, x)
+    return x + core.swiglu(blk.ffn, y)
+
+
+def lm_forward(model: LM, tokens: torch.Tensor, *, dtype=torch.bfloat16):
+    """tokens (B, S) → hidden (B, S, d_model) in `dtype`, aux loss (a
+    float32 zero: the ported blocks are dense)."""
+    cfg = model.cfg
+    x = core.embed(model.embed, tokens, dtype=dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for blk in model.blocks:
+        if remat:
+            x = checkpoint(_block_apply, blk, cfg, x, use_reentrant=False)
+        else:
+            x = _block_apply(blk, cfg, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return core.rmsnorm(model.ln_f, x), aux
+
+
+def _ce_chunk(model: LM, h: torch.Tensor, targets: torch.Tensor):
+    """Summed cross entropy of one sequence chunk, from float32 logits.
+    The gold logit is a gather; the reference takes it with a one-hot
+    einsum, whose other terms are exact zeros (the same value), because a
+    gather along a tensor-parallel vocab axis would all-gather the
+    logits."""
+    logits = _logits(model, h).float()
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+
+def lm_loss(model: LM, tokens: torch.Tensor, *, dtype=torch.bfloat16):
+    """Next-token cross entropy (+ 0.01 · the aux loss), over sequence
+    chunks of `cfg.loss_chunk` positions, each under checkpoint when
+    gradients are on, so at most one (B, chunk, V) float32 logits slab is
+    live. Returns (loss, {"nll", "aux"})."""
+    h, aux = lm_forward(model, tokens, dtype=dtype)
+    h, targets = h[:, :-1], tokens[:, 1:]
+    b, s = targets.shape
+    ck = min(model.cfg.loss_chunk, s)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, ck):
+        hc, tc = h[:, c0:c0 + ck], targets[:, c0:c0 + ck]
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_ce_chunk, model, hc, tc,
+                                       use_reentrant=False)
+        else:
+            total = total + _ce_chunk(model, hc, tc)
+    nll = total / (b * s)
+    return nll + 0.01 * aux, {"nll": nll, "aux": aux}
+
+
+@torch.no_grad()
+def lm_prefill_logits(model: LM, tokens: torch.Tensor, *,
+                      dtype=torch.bfloat16) -> torch.Tensor:
+    """Serve prefill: logits (B, 1, V) of the last position only."""
+    h, _ = lm_forward(model, tokens, dtype=dtype)
+    return _logits(model, h[:, -1:])
 
 
 @torch.no_grad()

@@ -13,7 +13,8 @@ the card unless given `device="cpu"`).
                 (`ServiceSupervisor`) and the open-loop driver.
   * `workers` — `WorkerPool`: spawned executor processes, each with its own
                 CUDA context, a watchdog and respawn.
-  * `ft`      — `FaultInjector`, the chaos schedule of the three above.
+  * `ft`      — `FaultInjector`, the chaos schedule of the three above,
+                and the training `Supervisor` (`repro_torch.runtime.ft`).
 """
 from .ft import FaultInjector
 from .queue import MatchQueueRuntime, QueryItem, StandingQuery, execute_chunk

@@ -1,7 +1,8 @@
 """The port's qwen2-1.5b decode path on the CPU against the reference:
 configs, NN primitives, one GQA decode step and four LM decode steps on
 the same weights (moved across by `lm_params_from_jax`), the bundle's
-inputs, and the serving launcher.
+inputs and FLOPs for every shape, and the serving launcher (prefill and
+training: tests/test_torch_prefill.py, tests/test_torch_train.py).
 
 Tolerances: float32 1e-4 absolute (sums in another order, through a few
 layers); bfloat16 logits 5e-2 absolute (each side rounds its activations
@@ -35,6 +36,8 @@ from repro_torch.models.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.nn import attention as attn  # noqa: E402
 from repro_torch.nn import core  # noqa: E402
 from repro_torch.nn import transformer as T  # noqa: E402
+from torch_lm_common import perturbed_params as _perturbed_params  # noqa: E402
+from torch_lm_common import to_np as _np  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "qwen2-1.5b"
@@ -44,34 +47,10 @@ TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JNP_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 
-def _np(x):
-    return x.float().numpy() if isinstance(x, torch.Tensor) \
-        else np.asarray(x).astype(np.float32)
-
-
-def _perturbed_params(cfg, seed=0):
-    """The reference's init with its zero biases and all-ones norm gains
-    replaced by seeded noise, so a wrong mapping of any leaf shows."""
-    params = jax_build_bundle(ARCH, reduced=True).init_fn(
-        jax.random.PRNGKey(seed))
-    rng = np.random.default_rng(seed + 1)
-
-    def perturb(path, leaf):
-        name = path[-1].key
-        a = np.asarray(leaf)
-        if name == "b":
-            a = a + 0.1 * rng.standard_normal(a.shape).astype(np.float32)
-        elif name == "g":
-            a = a + 0.2 * rng.standard_normal(a.shape).astype(np.float32)
-        return a
-
-    return jax.tree_util.tree_map_with_path(perturb, params)
-
-
 @pytest.fixture(scope="module")
 def weights():
     cfg = registry.get_config(ARCH, reduced=True)
-    tree = _perturbed_params(cfg)
+    tree = _perturbed_params()
     model = T.lm_init(cfg, seed=0, device="cpu")
     model.load_state_dict(lm_params_from_jax(tree, cfg), strict=True)
     return cfg, tree, model
@@ -96,7 +75,7 @@ def _random_caches(cfg, batch, max_len, dtype, seed):
 def test_config_is_the_reference_config(reduced):
     mine = registry.get_config(ARCH, reduced=reduced)
     theirs = jregistry.get_config(ARCH, reduced=reduced)
-    # the port keeps the fields that its decode path and n_params read
+    # the port keeps the fields that its LM paths and n_params read
     ours = dataclasses.asdict(mine)
     assert ours == {n: v for n, v in dataclasses.asdict(theirs).items()
                     if n in ours}
@@ -110,7 +89,8 @@ def test_unported_arch_and_blocks_name_the_roadmap():
         registry.get_config("chatglm3-6b")
     cfg = registry.get_config(ARCH, reduced=True)
     for change in ({"rope_frac": 0.5}, {"attention": "mla"},
-                   {"moe_experts": 4}, {"tie_embeddings": False}):
+                   {"moe_experts": 4}, {"tie_embeddings": False},
+                   {"cp_degree": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.lm_init(dataclasses.replace(cfg, **change), device="cpu")
     assert list(registry.ARCHS) == [ARCH]
@@ -129,10 +109,12 @@ def test_primitives_match_the_reference(dtype):
     xt, xj = torch.from_numpy(x).to(td), jnp.asarray(x).astype(jd)
 
     norm = core.RMSNorm(16, device="cpu")
-    norm.g.copy_(torch.from_numpy(rng.standard_normal(16).astype(np.float32)))
+    with torch.no_grad():             # the parameters are trainable
+        norm.g.copy_(torch.from_numpy(rng.standard_normal(16)
+                                      .astype(np.float32)))
     np.testing.assert_allclose(
         _np(core.rmsnorm(norm, xt)),
-        _np(jcore.rmsnorm({"g": jnp.asarray(norm.g.numpy())}, xj)),
+        _np(jcore.rmsnorm({"g": jnp.asarray(_np(norm.g))}, xj)),
         atol=tol, rtol=tol)
 
     pos = rng.integers(0, 300, (3, 2))
@@ -145,25 +127,27 @@ def test_primitives_match_the_reference(dtype):
         _np(jcore.apply_rope(xj, jcos, jsin, jrot)), atol=tol, rtol=tol)
 
     ffn = core.SwiGLU(16, 24, gen=gen, device="cpu")
-    ffn.wi.w.add_(0.1)                # break the symmetry between wi and wg
-    jffn = {n: {"w": jnp.asarray(getattr(ffn, n).w.numpy())}
+    with torch.no_grad():
+        ffn.wi.w.add_(0.1)            # break the symmetry between wi and wg
+    jffn = {n: {"w": jnp.asarray(_np(getattr(ffn, n).w))}
             for n in ("wi", "wg", "wo")}
     np.testing.assert_allclose(_np(core.swiglu(ffn, xt)),
                                _np(jcore.swiglu(jffn, xj)), atol=tol,
                                rtol=tol)
     lin = core.Dense(16, 8, bias=True, gen=gen, device="cpu")
-    lin.b.copy_(torch.arange(8, dtype=torch.float32) / 8)
+    with torch.no_grad():
+        lin.b.copy_(torch.arange(8, dtype=torch.float32) / 8)
     np.testing.assert_allclose(
         _np(core.dense(lin, xt)),
-        _np(jcore.dense({"w": jnp.asarray(lin.w.numpy()),
-                         "b": jnp.asarray(lin.b.numpy())}, xj)),
+        _np(jcore.dense({"w": jnp.asarray(_np(lin.w)),
+                         "b": jnp.asarray(_np(lin.b))}, xj)),
         atol=tol, rtol=tol)
 
     emb = core.Embedding(11, 16, gen=gen, device="cpu")
     ids = rng.integers(0, 11, (3, 1)).astype(np.int32)
     np.testing.assert_array_equal(
         _np(core.embed(emb, torch.from_numpy(ids), dtype=td)),
-        _np(jcore.embed({"table": jnp.asarray(emb.table.numpy())},
+        _np(jcore.embed({"table": jnp.asarray(_np(emb.table))},
                         jnp.asarray(ids), dtype=jd)))
 
 
@@ -258,29 +242,39 @@ def test_caches_are_stacked_as_the_reference_stacks_them():
 
 
 # ------------------------------------------------------------- bundle
+def _same_inputs_and_flops(bundle, jbundle, shape_id):
+    mine = bundle.make_inputs(shape_id, seed=3)
+    theirs = jbundle.make_inputs(shape_id, seed=3)
+    specs = bundle.input_specs(shape_id)
+    assert sorted(specs) == sorted(mine) == sorted(theirs) \
+        == sorted(jbundle.input_specs(shape_id))
+    for n, (shape, dtype) in specs.items():
+        np.testing.assert_array_equal(mine[n].numpy(), np.asarray(theirs[n]))
+        assert (shape, dtype) == (theirs[n].shape, torch.int32)
+        assert shape == jbundle.input_specs(shape_id)[n].shape
+    assert bundle.model_flops(shape_id) == jbundle.model_flops(shape_id)
+
+
 def test_bundle_inputs_and_flops_are_the_reference_ones():
     bundle = build_bundle(ARCH, reduced=True, device="cpu")
     jbundle = jax_build_bundle(ARCH, reduced=True)
-    for shape_id in ("decode_32k", "long_500k"):
-        mine = bundle.make_inputs(shape_id, seed=3)
-        theirs = jbundle.make_inputs(shape_id, seed=3)
-        for n in ("token", "lengths"):
-            np.testing.assert_array_equal(mine[n].numpy(),
-                                          np.asarray(theirs[n]))
-            assert bundle.input_specs(shape_id)[n] == (
-                theirs[n].shape, torch.int32)
-        assert bundle.model_flops(shape_id) == jbundle.model_flops(shape_id)
+    for shape_id in LM_SHAPES:
+        _same_inputs_and_flops(bundle, jbundle, shape_id)
     cut = bundle.make_inputs("decode_32k", batch=5)
     assert cut["lengths"].shape == (5,)
+    assert bundle.make_inputs("train_4k", batch=3)["tokens"].shape == (3, 128)
 
 
-def test_unported_steps_and_shapes_raise():
-    bundle = build_bundle(ARCH, reduced=True, device="cpu")
-    for kind in ("train", "prefill"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            bundle.steps[kind](None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bundle.make_inputs("train_4k")
+@pytest.mark.parametrize("shape_id", ["train_4k", "prefill_32k"])
+def test_train_and_prefill_shapes_are_the_reference_ones(shape_id):
+    """At full width: the shape's (B, S) tokens, the same draws, and the
+    reference's model FLOPs (6·N·B·S for train, 2·N·B·S for prefill)."""
+    bundle = build_bundle(ARCH, device="cpu")
+    jbundle = jax_build_bundle(ARCH)
+    _same_inputs_and_flops(bundle, jbundle, shape_id)
+    spec = LM_SHAPES[shape_id]
+    assert bundle.input_specs(shape_id) == {"tokens": (
+        (spec["global_batch"], spec["seq_len"]), torch.int32)}
 
 
 def test_bundle_runs_on_cuda_unless_told_cpu(monkeypatch):
@@ -315,10 +309,15 @@ def test_serve_main_runs_on_the_cpu(capsys):
 
 def test_lm_path_imports_neither_jax_nor_the_reference():
     code = (
-        "import sys\n"
-        "from repro_torch.launch import serve\n"
+        "import sys, tempfile\n"
+        "from repro_torch.launch import serve, train\n"
+        "from repro_torch.train import trainer\n"
+        "from repro_torch.runtime import ft\n"
         "assert serve.main(['--tokens', '1', '--batch', '1', "
         "'--device', 'cpu']) == 0\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    assert train.main(['--steps', '2', '--batch', '2', '--seq', "
+        "'16', '--ckpt-dir', d, '--device', 'cpu']) == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")

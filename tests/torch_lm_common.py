@@ -1,0 +1,55 @@
+"""Helpers shared by the LM tests of the port: the reference's reduced
+qwen2-1.5b weights with seeded noise on the biases and gains, the port's
+model on the same weights, and conversions to numpy."""
+import numpy as np
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.models.api import build_bundle as jax_build_bundle
+from repro_torch.configs import registry
+from repro_torch.models.convert import lm_params_from_jax
+from repro_torch.nn import transformer as T
+
+ARCH = "qwen2-1.5b"
+TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JNP_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def to_np(x):
+    return x.detach().float().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x).astype(np.float32)
+
+
+def perturbed_params(seed=0):
+    """The reference's init with its zero biases and all-ones norm gains
+    replaced by seeded noise, so a wrong mapping of any leaf shows."""
+    params = jax_build_bundle(ARCH, reduced=True).init_fn(
+        jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed + 1)
+
+    def perturb(path, leaf):
+        name = path[-1].key
+        a = np.asarray(leaf)
+        if name == "b":
+            a = a + 0.1 * rng.standard_normal(a.shape).astype(np.float32)
+        elif name == "g":
+            a = a + 0.2 * rng.standard_normal(a.shape).astype(np.float32)
+        return a
+
+    return jax.tree_util.tree_map_with_path(perturb, params)
+
+
+def port_model(tree, cfg=None):
+    """The port's reduced model (or `cfg`'s) on the CPU with `tree`'s
+    weights."""
+    cfg = cfg or registry.get_config(ARCH, reduced=True)
+    model = T.lm_init(cfg, seed=0, device="cpu")
+    model.load_state_dict(lm_params_from_jax(tree, cfg), strict=True)
+    return model
+
+
+def port_grads(jgrads, cfg) -> dict:
+    """The reference's gradient tree as the port's parameter names."""
+    return {k: v.numpy() for k, v in lm_params_from_jax(jgrads, cfg).items()}
