@@ -30,7 +30,9 @@ Phases, in order; any failure exits non-zero:
               (4, 4), (16, 2), (32, 1)}, S in {1, 17, 128, 200}, D in
               {16, 64, 128}, plus the serve loop's (4, 12, 2, 24, 128),
               S = 32,768 at D = 128, D = 18 and 40 at S = 200 and D = 256
-              at S = 3,000, in all four (q, cache) dtype pairs,
+              at S = 3,000, phase 5c's decode_32k layers (32, 32, 2,
+              32,768, 128), (32, 32, 4, 32,768, 128) and (8, 24, 8,
+              32,768, 64), in all four (q, cache) dtype pairs,
               with ragged lengths and with none, and at S = 32,768 with
               lengths chunk - 1, chunk, chunk + 1 and 2 chunk for the chunk
               that `split_plan` picks, within FD_TOL (below);
@@ -180,6 +182,39 @@ Phases, in order; any failure exits non-zero:
               asserted: one layer of prefill_32k's attention (B 1, S
               32,768, 12/2 heads, D 128, causal, bf16) through
               `flash_attention` beside `scaled_dot_product_attention`;
+  5c. the other LM architectures — chatglm3-6b (partial rotary),
+              minicpm3-4b (MLA), qwen3-moe-30b-a3b and granite-moe-3b-a800m
+              (MoE), run after phase 5b, one at a time, each model freed
+              before the next. `python -m repro_torch.launch.serve --arch
+              <id>` (its `main`, no --device: the reduced model on the
+              card, batch 4 x 16 tokens, float32 cache) with n_layers x
+              16 flash_decode launches, all "cuda_core" (0 for MLA). The
+              reduced model in float32 on the card
+              against the CPU: prefill logits within 1e-4; 8 decode steps
+              over a random cache (flash_decode on the card, the plain
+              version on the CPU; MLA plain on both) to 1e-4 in the last
+              logits and the caches, with n_layers x 8 launches (0 for
+              MLA); one train step's loss (with the MoE aux) and gnorm
+              within 1e-5 relative and its parameters within 1e-5. Then at
+              full width, bfloat16 weights from seed 0 and bfloat16
+              activations (qwen3-moe cut to 12 of its 48 layers): 3
+              `decode_32k` steps at batch 32 (granite: 8) over a bfloat16
+              cache of 32,772 positions filled with seeded values, lengths
+              from make_inputs(seed=0), launch counts set to 0 just before
+              and read just after: n_layers x 3 flash_decode launches, all
+              "tensor_core", each a split kernel and a combine, for the GQA
+              models, none for minicpm3; one more step with each attention
+              call held against the plain version within FD_TOL; ms a
+              step, tokens/s, peak memory, and for the GQA models
+              flash_decode timed at that layer shape beside its plain
+              version, SDPA and its bound. Prefill of 4,096 tokens at
+              batch 1 (prefill_32k cut in length and batch): logits finite,
+              cold and warm ms, tokens/s, model_flops (active parameters)
+              over the time as a share of the bf16 peak, peak memory.
+              chatglm3-6b and minicpm3-4b: prefill over 64 tokens at batch
+              2 against the same tokens decoded one by one (float32, last
+              logits within LM_32K_F32_ATOL; for minicpm3 the absorbed
+              decode against the expanded path). Prints phase 5c's wall;
   6. timing — each kernel's median device time at its path's shapes beside
               its plain version's, its bound and, for flash_decode, the
               time of `scaled_dot_product_attention`, the achieved bytes/s
@@ -192,7 +227,8 @@ Phases, in order; any failure exits non-zero:
               `torch.cuda._sleep(0)` kernel back to back, and alone after
               an L2 flush;
   7. summary — the kernels line, the card, one JSON line of per-kernel
-              numbers, and last the line
+              numbers (flash_decode's with phase 5c's launches and its
+              times at phase 5c's shapes), and last the line
               {"ok": true, "device": {"platform": "gpu", ...}}.
 
 It imports nothing of jax or of the JAX package `repro`.
@@ -501,6 +537,35 @@ XCHECK_TOKENS, XCHECK_BATCH = 64, 2
 TRAIN_F32_RTOL, TRAIN_F32_PARAM_ATOL = 1e-5, 1e-5
 REPLAY_ATOL = 1e-4                # a replayed run against a fault-free one
 BF16_PEAK_FLOPS = 989e12          # H100 SXM dense bf16, NVIDIA data sheet
+# Phase 5c: the registry's other four LM architectures, bfloat16 weights
+# from seed 0. decode_32k's 128 rows are cut to what one card holds beside
+# the weights (a bfloat16 cache of 32,772 positions): 32 rows, granite's 8
+# (its 32 layers x 8 KV heads of 64 need 68.7 GB at 32 rows); qwen3-moe's
+# 48 layers are cut to 12 (61 GB of weights at 48, 103 GB of cache).
+# prefill_32k is cut to 4,096 tokens at batch 1, so that the eager
+# flash_attention stays within the run's time.
+FAMILY_ARCHS = ("chatglm3-6b", "minicpm3-4b", "qwen3-moe-30b-a3b",
+                "granite-moe-3b-a800m")
+FAMILY_DECODE_BATCH = {"chatglm3-6b": 32, "minicpm3-4b": 32,
+                       "qwen3-moe-30b-a3b": 32, "granite-moe-3b-a800m": 8}
+FAMILY_LAYERS = {"qwen3-moe-30b-a3b": 12}
+FAMILY_PREFILL_TOKENS = 4096
+# prefill against decode, as phase 5b's: the dense families only (a MoE
+# groups prefill over the sequence and decode over the batch, so their
+# capacities and drops differ by design)
+FAMILY_XCHECK = ("chatglm3-6b", "minicpm3-4b")
+FAMILY_REDUCED_STEPS = 8
+# The reduced train step's parameters are held at TRAIN_F32_PARAM_ATOL
+# where Adam's first step is well conditioned: it moves an entry by
+# lr·g/(|g| + eps) (+ the decay), so where the clipped gradient |g| is
+# near eps = 1e-8 it normalises float32 rounding noise. chatglm3's K bias
+# has a zero true gradient on its non-rotated half (a shift of every key's
+# score), and the CPU's own float32 step differs from its float64 step by
+# 1.8e-5 there; with |g| >= ADAM_G_FLOOR the two differ by at most 3e-8 on
+# all four models. The other entries are held within 2·lr, the most two
+# first steps can differ, and every gradient (m / (1 - b1)) within
+# TRAIN_F32_PARAM_ATOL of its leaf's largest.
+ADAM_G_FLOOR = 1e-6
 
 
 def card_line() -> str:
@@ -1957,6 +2022,7 @@ def check_flash_decode(fd, ref, dev) -> tuple[dict, int]:
     """flash_decode against its plain version over the CPU tests' shapes
     plus D = 128, G = 8 and G = 32, S = 32,768 at D = 128, D = 18 and 40
     (rows not 16-byte aligned, bf16 D not a multiple of 16) and D = 256,
+    phase 5c's three decode_32k layer shapes,
     in all four dtype pairs, with ragged lengths and with none; and at S = 32,768 with
     lengths at the boundaries of the chunk that split_plan picks. Returns
     the largest absolute difference per output dtype and the number of
@@ -1971,6 +2037,10 @@ def check_flash_decode(fd, ref, dev) -> tuple[dict, int]:
     # multiple of 16 (40), and the largest D over a few chunks
     shapes += [(3, 12, 2, 200, 18), (3, 12, 2, 200, 40),
                (2, 12, 2, 3_000, 256)]
+    # phase 5c's decode_32k layers: chatglm3-6b (group 16), qwen3-moe
+    # (group 8) and granite-moe (group 3 at D = 64)
+    shapes += [(32, 32, 2, 32_768, 128), (32, 32, 4, 32_768, 128),
+               (8, 24, 8, 32_768, 64)]
     edge_shape = (4, 12, 2, 32_768, 128)
     chunk = fd.split_plan(*edge_shape)[0]
     cases = [(shape, None) for shape in shapes]
@@ -2186,20 +2256,19 @@ def drive_decode_32k(bi, fd, kops, ref, bundle, model, dev,
             "n_heads": bundle.cfg.n_heads}
 
 
-def time_flash_decode(fd, ref, dev, d32k, launches, errs) -> dict:
-    """flash_decode at one layer's decode_32k shape: layer 0's bfloat16
-    cache, bfloat16 q, the lengths the last step attended over; beside the
-    plain version and scaled_dot_product_attention with a length mask."""
+def time_fd_shape(fd, ref, dev, k, v, lens, h: int, where: str) -> dict:
+    """flash_decode on one layer's bfloat16 cache (k, v) at the lengths a
+    decode step attended over, with a seeded bfloat16 q of h heads: held
+    against the plain version, then timed beside it and beside
+    scaled_dot_product_attention with a length mask; the bound from the
+    bytes these lengths need (each attended K/V row read once) and the
+    operations, and the share of the bound."""
     import torch.nn.functional as F
-    k, v = d32k["caches"]["k"][0], d32k["caches"]["v"][0]
-    lens = d32k["lengths"]
     b, s, hkv, d = k.shape
-    h = d32k["n_heads"]
     gen = torch.Generator(device=dev).manual_seed(3)
     q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
     want = ref.flash_decode_ref(q, k, v, lens)
-    err = fd_agrees(fd.flash_decode(q, k, v, lens), want,
-                    "the decode_32k shape")
+    err = fd_agrees(fd.flash_decode(q, k, v, lens), want, where)
     ms = median_ms(lambda: fd.flash_decode(q, k, v, lens))
     plain_ms = median_ms(lambda: ref.flash_decode_ref(q, k, v, lens))
     # the library yardstick: (B, H, 1, D) over (B, Hkv, S, D) views
@@ -2221,31 +2290,47 @@ def time_flash_decode(fd, ref, dev, d32k, launches, errs) -> dict:
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     bytes_per_s = nbytes / (ms / 1e3)
     chunk, n_chunks, _ = fd.split_plan(b, h, hkv, s, d)
-    print(f"time flash_decode: B={b} H={h} Hkv={hkv} D={d} S={s} "
-          f"sum(lengths)={total_len} route={fd.route(q, k, v)} "
+    kernel_route = fd.route(q, k, v)
+    print(f"time flash_decode ({where}): B={b} H={h} Hkv={hkv} D={d} "
+          f"S={s} sum(lengths)={total_len} route={kernel_route} "
           f"chunk={chunk} n_chunks={n_chunks} ms={ms:.6f} "
           f"plain_ms={plain_ms:.6f} sdpa_ms={library_ms:.6f} (max_abs_err "
           f"{lib_err:.3g}) bound_ms={bound_ms:.6f} ({bound_by}: {nbytes} B, "
           f"{flops} flop) achieved {bytes_per_s / 1e12:.4f} TB/s, "
           f"{bound_ms / ms:.4f} of the bound", flush=True)
+    return {"kernel_route": kernel_route, "chunk": chunk,
+            "n_chunks": n_chunks, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "bytes_per_s": bytes_per_s, "bound_share": bound_ms / ms,
+            "library_max_abs_err": lib_err,
+            "shape": {"B": b, "H": h, "Hkv": hkv, "D": d, "S": s,
+                      "sum_lengths": total_len, "q": "bfloat16",
+                      "cache": "bfloat16"}}
+
+
+def time_flash_decode(fd, ref, dev, d32k, launches, errs) -> dict:
+    """The kernels line's flash_decode row, timed at one layer of
+    qwen2-1.5b's decode_32k: layer 0's bfloat16 cache, bfloat16 q, the
+    lengths the last step attended over (`time_fd_shape`)."""
+    t = time_fd_shape(fd, ref, dev, d32k["caches"]["k"][0],
+                      d32k["caches"]["v"][0], d32k["lengths"],
+                      d32k["n_heads"], f"{LM_ARCH} decode_32k")
     return {"name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode.py:100",
             "launches": launches["serve"]["calls"],
             "launches_by_path": launches,
-            "kernel_route": fd.route(q, k, v), "chunk": chunk,
-            "n_chunks": n_chunks,
-            "max_abs_err": max(max(errs.values()), err),
+            **{k: t[k] for k in ("kernel_route", "chunk", "n_chunks")},
+            "max_abs_err": max(max(errs.values()), t["max_abs_err"]),
             "max_abs_err_by_case": errs,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "bytes_per_s": bytes_per_s, "bound_share": bound_ms / ms,
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "bytes_per_s",
+                                 "bound_share")},
             "library": "scaled_dot_product_attention(enable_gqa=True, "
                        "attn_mask=length mask)",
-            "library_max_abs_err": lib_err,
-            "shape": {"B": b, "H": h, "Hkv": hkv, "D": d, "S": s,
-                      "sum_lengths": total_len, "q": "bfloat16",
-                      "cache": "bfloat16"}}
+            "library_max_abs_err": t["library_max_abs_err"],
+            "shape": t["shape"]}
 
 
 def flushed_ms(fn, flush, *, reps: int = 20) -> float:
@@ -2522,9 +2607,10 @@ def drive_prefill_32k(bundle, model, dev) -> dict:
 
 
 def prefill_against_decode(bundle, model, fd, dev) -> dict:
-    """Phase 5b.2: prefill over a 64-token prefix at batch 2 against the
-    same tokens fed one by one through the decode step with the
-    flash_decode kernel, float32 activations and cache."""
+    """Phase 5b.2 (and 5c): prefill over a 64-token prefix at batch 2
+    against the same tokens fed one by one through the decode step (with
+    the flash_decode kernel, or MLA's absorbed path), float32 activations
+    and cache."""
     f32 = torch.float32
     tokens = bundle.make_inputs(PREFILL_SHAPE, seed=1, batch=XCHECK_BATCH)[
         "tokens"][:, :XCHECK_TOKENS].contiguous()
@@ -2539,7 +2625,9 @@ def prefill_against_decode(bundle, model, fd, dev) -> dict:
         lengths = lengths + 1
     torch.cuda.synchronize()
     launches = fd.flash_decode.launches
-    expect = bundle.cfg.n_layers * XCHECK_TOKENS
+    # MLA decode is plain torch: no flash_decode launch
+    expect = (bundle.cfg.n_layers * XCHECK_TOKENS
+              if bundle.cfg.attention != "mla" else 0)
     err = float((logits - want[:, 0]).abs().max())
     if launches != expect or not err <= LM_32K_F32_ATOL:
         raise SystemExit(f"prefill against decode: {launches} flash_decode "
@@ -2672,6 +2760,299 @@ def run_phase_5b(dev, card: str) -> dict:
     print(f"phase 5b in {time.perf_counter() - t0:.3f} s", flush=True)
     return {"reduced": red, "prefill_32k": pre, "prefill_vs_decode": xc,
             "train_4k": tr, "attention": at}
+
+
+def check_family_reduced(build_bundle, fd, arch: str, dev) -> dict:
+    """Phase 5c.2: `arch`'s reduced model in float32, card against CPU:
+    prefill logits, FAMILY_REDUCED_STEPS decode steps over a random cache
+    (flash_decode on the card, its plain version on the CPU; MLA plain on
+    both) and one train step (loss with the MoE aux, gnorm, parameters)."""
+    f32 = torch.float32
+    cpu = build_bundle(arch, reduced=True, device="cpu")
+    card = build_bundle(arch, reduced=True, device=dev)
+    cfg = cpu.cfg
+    m_cpu = cpu.init_fn(0)
+    m_card = card.init_fn(1)
+    m_card.load_state_dict(m_cpu.state_dict())
+    tokens = cpu.make_inputs(PREFILL_SHAPE, seed=0)["tokens"]
+    want = cpu.steps["prefill"](m_cpu, {"tokens": tokens}, dtype=f32)
+    got = card.steps["prefill"](m_card, {"tokens": tokens.to(dev)},
+                                dtype=f32).cpu()
+    prefill_err = float((got - want).abs().max())
+    if got.shape != want.shape or not prefill_err <= LM_F32_ATOL:
+        raise SystemExit(f"reduced {arch} prefill: card and CPU differ "
+                         f"(shape {tuple(got.shape)}, max_abs_err "
+                         f"{prefill_err})")
+    inputs = cpu.make_inputs(DECODE_SHAPE, seed=0)
+    b = inputs["token"].shape[0]
+    c_cpu = cpu.init_caches(b, 128 + FAMILY_REDUCED_STEPS, dtype=f32)
+    gen = torch.Generator().manual_seed(2)
+    for t in c_cpu.values():
+        t.normal_(generator=gen)
+    c_card = {n: t.to(dev) for n, t in c_cpu.items()}
+    token, lengths = inputs["token"], inputs["lengths"]
+    fd.reset_launches()
+    for _ in range(FAMILY_REDUCED_STEPS):
+        want, c_cpu = cpu.steps["decode"](
+            m_cpu, c_cpu, {"token": token, "lengths": lengths}, dtype=f32)
+        got, c_card = card.steps["decode"](
+            m_card, c_card, {"token": token.to(dev),
+                             "lengths": lengths.to(dev)}, dtype=f32)
+        token, lengths = want.argmax(-1).to(torch.int32), lengths + 1
+    launches = fd.flash_decode.launches
+    expect = (cfg.n_layers * FAMILY_REDUCED_STEPS
+              if cfg.attention != "mla" else 0)
+    decode_err = float((got.cpu() - want).abs().max())
+    cache_err = max(float((c_card[n].cpu() - c_cpu[n]).abs().max())
+                    for n in c_cpu)
+    if not (decode_err <= LM_F32_ATOL and cache_err <= LM_F32_ATOL
+            and launches == expect):
+        raise SystemExit(f"reduced {arch} decode: card and CPU differ "
+                         f"(last logits max_abs_err {decode_err}, caches "
+                         f"{cache_err}) or flash_decode launched {launches} "
+                         f"times (expected {expect})")
+    batch = cpu.make_inputs(TRAIN_SHAPE, seed=0)
+    p_cpu = dict(m_cpu.named_parameters())
+    p_card = dict(m_card.named_parameters())
+    s_cpu, s_card = cpu.optimizer.init(p_cpu), card.optimizer.init(p_card)
+    _, _, met_cpu = cpu.steps["train"](m_cpu, s_cpu, batch, dtype=f32)
+    _, _, met_card = card.steps["train"](
+        m_card, s_card, {"tokens": batch["tokens"].to(dev)}, dtype=f32)
+    rel = {k: abs(float(met_card[k]) - float(met_cpu[k]))
+           / abs(float(met_cpu[k])) for k in ("loss", "gnorm")}
+    opt = cpu.optimizer
+    param_err, loose_err, grad_err, n_loose = 0.0, 0.0, 0.0, 0
+    for k, p in p_cpu.items():
+        g = s_cpu["m"][k] / (1 - opt.b1)          # the clipped gradient
+        g_card = s_card["m"][k].cpu() / (1 - opt.b1)
+        grad_err = max(grad_err, float((g_card - g).abs().max())
+                       / max(float(g.abs().max()), 1e-30))
+        diff = (p_card[k].detach().cpu() - p.detach()).abs()
+        firm = g.abs() >= ADAM_G_FLOOR
+        if firm.any():
+            param_err = max(param_err, float(diff[firm].max()))
+        if not firm.all():
+            loose_err = max(loose_err, float(diff[~firm].max()))
+        n_loose += int((~firm).sum())
+    if not (max(rel.values()) <= TRAIN_F32_RTOL
+            and param_err <= TRAIN_F32_PARAM_ATOL
+            and grad_err <= TRAIN_F32_PARAM_ATOL
+            and loose_err <= 2 * opt.lr):
+        raise SystemExit(f"reduced {arch} train step: card and CPU differ "
+                         f"(relative {rel}, gradients {grad_err} of each "
+                         f"leaf's largest, parameters max_abs_err "
+                         f"{param_err} where |g| >= {ADAM_G_FLOOR}, "
+                         f"{loose_err} on the {n_loose} other entries)")
+    return {"prefill_max_abs_err": prefill_err,
+            "decode_steps": FAMILY_REDUCED_STEPS,
+            "decode_max_abs_err": decode_err, "cache_max_abs_err": cache_err,
+            "flash_decode_launches": launches,
+            "train_loss": float(met_cpu["loss"]), "train_rel_err": rel,
+            "train_grad_rel_err": grad_err,
+            "train_param_max_abs_err": param_err,
+            "train_small_grad_entries": n_loose,
+            "train_small_grad_param_max_abs_err": loose_err}
+
+
+def drive_family_launcher(serve, fd, arch: str) -> dict:
+    """Phase 5c.1: the launcher as a user runs it, `python -m
+    repro_torch.launch.serve --arch <arch>` with no --device (its `main`:
+    the reduced config on the card, random bfloat16 weights, greedy decode
+    of SERVE_BATCH x SERVE_TOKENS over a float32 cache), with the launch
+    counts set to 0 just before and read just after: n_layers x
+    SERVE_TOKENS flash_decode launches, all "cuda_core", for GQA; none for
+    MLA."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch, reduced=True)
+    fd.reset_launches()
+    t0 = time.perf_counter()
+    rc = serve.main(["--arch", arch])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = fd.flash_decode.launches
+    by_route = dict(fd.flash_decode.launches_by_route)
+    want = cfg.n_layers * SERVE_TOKENS if cfg.attention != "mla" else 0
+    if (rc, launches, by_route) != (0, want, {"tensor_core": 0,
+                                              "cuda_core": want}):
+        raise SystemExit(f"serve --arch {arch} on the card: exit {rc}, "
+                         f"flash_decode launches {launches} by route "
+                         f"{by_route} (expected {want}, all cuda_core)")
+    return {"arch": arch, "seconds": secs, "launches": launches,
+            "launches_by_route": by_route}
+
+
+def drive_family_decode_32k(bi, fd, kops, ref, bundle, model, arch: str,
+                            dev) -> dict:
+    """Phase 5c.3: decode_32k at FAMILY_DECODE_BATCH[arch] rows, bfloat16
+    weights and activations over a bfloat16 cache of 32,768 positions (plus
+    the steps' new tokens) filled with seeded random values, lengths from
+    make_inputs(seed=0): DECODE_STEPS greedy steps with the launch counts
+    set to 0 just before and read just after (GQA: n_layers launches a
+    step, all "tensor_core", each a split kernel and a combine; MLA: none),
+    then one more step with each attention call held against the plain
+    version; for GQA, flash_decode timed on layer 0's cache at the lengths
+    that step attended over (`time_fd_shape`)."""
+    from repro_torch.config import LM_SHAPES
+    cfg = bundle.cfg
+    batch = FAMILY_DECODE_BATCH[arch]
+    seq = LM_SHAPES[DECODE_SHAPE]["seq_len"]
+    gqa = cfg.attention != "mla"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    inputs = bundle.make_inputs(DECODE_SHAPE, seed=0, batch=batch)
+    caches = bundle.init_caches(batch, seq + DECODE_STEPS + 1,
+                                dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for t in caches.values():
+        t.normal_(generator=gen)
+    step = bundle.steps["decode"]
+    token, lengths = inputs["token"], inputs["lengths"]
+    torch.cuda.synchronize()
+    bi.reset_launches()
+    fd.reset_launches()
+    step_ms = []
+    for _ in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        logits, caches = step(model, caches,
+                              {"token": token, "lengths": lengths})
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        lengths = lengths + 1
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = fd.flash_decode.launches
+    by_route = dict(fd.flash_decode.launches_by_route)
+    by_kernel = dict(fd.flash_decode.launches_by_kernel)
+    bitmap = sum(fn.launches for fn in bi.WRAPPERS)
+    want = cfg.n_layers * DECODE_STEPS if gqa else 0
+    n_chunks = fd.split_plan(batch, cfg.n_heads, cfg.n_kv_heads,
+                             caches["k"].shape[2], cfg.head_dim)[1] \
+        if gqa else 1
+    want_kernel = {"split": want, "combine": want if n_chunks > 1 else 0}
+    if (launches, by_route, by_kernel, bitmap) != (
+            want, {"tensor_core": want, "cuda_core": 0}, want_kernel, 0):
+        raise SystemExit(f"{arch} decode_32k launched flash_decode "
+                         f"{launches} times, routes {by_route}, device "
+                         f"kernels {by_kernel} (expected {want}, all on "
+                         f"tensor_core, {want_kernel}), bitmap kernels "
+                         f"{bitmap}")
+    if not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"{arch} decode_32k logits are not finite")
+    batch_in = {"token": token, "lengths": lengths}
+    out = {}
+    held = held_attention(kops, ref, lambda: out.update(
+        logits=step(model, caches, batch_in)[0]))
+    if held["calls"] != (cfg.n_layers if gqa else 0) \
+            or not bool(torch.isfinite(out["logits"]).all()):
+        raise SystemExit(f"{arch} decode_32k step held {held['calls']} "
+                         f"attention calls (expected "
+                         f"{cfg.n_layers if gqa else 0}), logits finite "
+                         f"{bool(torch.isfinite(out['logits']).all())}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    timing = (time_fd_shape(fd, ref, dev, caches["k"][0], caches["v"][0],
+                            lengths + 1, cfg.n_heads, f"{arch} decode_32k")
+              if gqa else None)
+    ms = float(np.median(step_ms))
+    return {"batch": batch, "layers": cfg.n_layers,
+            "cache_positions": seq + DECODE_STEPS + 1,
+            "cache_bytes": sum(t.numel() * t.element_size()
+                               for t in caches.values()),
+            "steps": DECODE_STEPS, "step_ms": step_ms, "ms_per_step": ms,
+            "tokens_per_s": batch / (ms / 1e3), "launches": launches,
+            "launches_by_route": by_route, "launches_by_kernel": by_kernel,
+            "attention_held": held, "peak_bytes": peak,
+            "flash_decode": timing}
+
+
+def drive_family_prefill(bundle, model, dev) -> dict:
+    """Phase 5c.4: `steps["prefill"]` over the first FAMILY_PREFILL_TOKENS
+    tokens of prefill_32k's first row, bfloat16; a cold call, then a warm
+    one."""
+    tokens = bundle.make_inputs(PREFILL_SHAPE, seed=0, batch=1)["tokens"][
+        :, :FAMILY_PREFILL_TOKENS].contiguous()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = bundle.steps["prefill"](model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    cfg = bundle.cfg
+    if tuple(logits.shape) != (1, 1, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"{cfg.name} prefill logits: shape "
+                         f"{tuple(logits.shape)}, finite "
+                         f"{bool(torch.isfinite(logits).all())}")
+    flops = 2.0 * cfg.n_active_params() * FAMILY_PREFILL_TOKENS
+    return {"batch": 1, "tokens": FAMILY_PREFILL_TOKENS, "ms": ms,
+            "tokens_per_s": FAMILY_PREFILL_TOKENS / (ms[-1] / 1e3),
+            "model_flops": flops,
+            "bf16_peak_share": flops / (ms[-1] / 1e3) / BF16_PEAK_FLOPS,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+def run_phase_5c(dev, card: str) -> dict:
+    """Phase 5c: the other four LM architectures (module docstring)."""
+    from repro_torch.kernels import bitmap_intersect as bi
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_bundle
+    t0 = time.perf_counter()
+    res = {}
+    for arch in FAMILY_ARCHS:
+        ta = time.perf_counter()
+        launcher = drive_family_launcher(serve, fd, arch)
+        print(f"serve --arch {arch} on the card: " + json.dumps(launcher),
+              flush=True)
+        red = check_family_reduced(build_bundle, fd, arch, dev)
+        print(f"reduced {arch} on the card against the CPU, float32: "
+              + json.dumps(red), flush=True)
+        layers = FAMILY_LAYERS.get(arch)
+        bundle = build_bundle(arch, device=dev, override=(
+            {"n_layers": layers} if layers else None))
+        cfg = bundle.cfg
+        torch.cuda.synchronize()
+        ti = time.perf_counter()
+        model = bundle.init_fn(0, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        print(f"{arch}: {cfg.n_layers} layers, {cfg.n_params():,} "
+              f"parameters ({cfg.n_active_params():,} active) in bfloat16, "
+              f"init {time.perf_counter() - ti:.3f} s", flush=True)
+        d32k = drive_family_decode_32k(bi, fd, kops, ref, bundle, model,
+                                       arch, dev)
+        print(f"lm {arch} decode_32k " + json.dumps(d32k), flush=True)
+        print(f"{arch} decode_32k on {card}: batch {d32k['batch']}, "
+              f"{d32k['layers']} layers, "
+              f"{d32k['ms_per_step']:.2f} ms a step (median of "
+              f"{d32k['steps']}), {d32k['tokens_per_s']:.1f} tokens/s, "
+              f"flash_decode launches {d32k['launches']}, held "
+              f"{d32k['attention_held']['calls']} attention calls, peak "
+              f"memory {d32k['peak_bytes']:,} B", flush=True)
+        pre = drive_family_prefill(bundle, model, dev)
+        print(f"lm {arch} prefill " + json.dumps(pre), flush=True)
+        print(f"{arch} prefill on {card}: batch 1 x {pre['tokens']} tokens, "
+              f"cold {pre['ms'][0]:.1f} ms, warm {pre['ms'][1]:.1f} ms, "
+              f"{pre['tokens_per_s']:.0f} tokens/s, "
+              f"{100 * pre['bf16_peak_share']:.3f} % of the bf16 peak, peak "
+              f"memory {pre['peak_bytes']:,} B", flush=True)
+        xc = None
+        if arch in FAMILY_XCHECK:
+            xc = prefill_against_decode(bundle, model, fd, dev)
+            print(f"lm {arch} prefill vs decode " + json.dumps(xc),
+                  flush=True)
+        del model
+        torch.cuda.empty_cache()
+        res[arch] = {"launcher": launcher, "reduced": red,
+                     "decode_32k": d32k, "prefill": pre,
+                     "prefill_vs_decode": xc,
+                     "seconds": time.perf_counter() - ta}
+        print(f"phase 5c {arch} in {res[arch]['seconds']:.3f} s",
+              flush=True)
+    print(f"phase 5c in {time.perf_counter() - t0:.3f} s", flush=True)
+    return res
 
 
 def main() -> int:
@@ -2897,6 +3278,23 @@ def main() -> int:
     del d32k, model
     torch.cuda.empty_cache()
     run_phase_5b(dev, card)
+    # phase 5c once phase 5b's model is freed; its decode_32k launches and
+    # timings go into flash_decode's row
+    fam = run_phase_5c(dev, card)
+    fdk = next(k for k in kernels if k["name"] == "flash_decode")
+    for arch, r in fam.items():
+        d = r["decode_32k"]
+        fdk["launches_by_path"][f"{arch} decode_32k"] = {
+            "calls": d["launches"], "by_route": d["launches_by_route"],
+            "by_kernel": d["launches_by_kernel"]}
+        if d["flash_decode"] is not None:
+            fdk.setdefault("by_shape", {})[f"{arch} decode_32k"] = \
+                d["flash_decode"]
+            fdk["max_abs_err_by_case"][f"{arch} decode_32k step"] = \
+                d["attention_held"]["max_abs_err"]
+            fdk["max_abs_err"] = max(fdk["max_abs_err"],
+                                     d["attention_held"]["max_abs_err"],
+                                     d["flash_decode"]["max_abs_err"])
 
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.3f} s",
           flush=True)

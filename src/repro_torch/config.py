@@ -3,9 +3,10 @@
 A copy of `LM_SHAPES` and of `LMConfig` from the JAX package's
 `config.py` (pure dataclasses; the port imports nothing of that package).
 `LMConfig` keeps the fields that the decode, prefill and train paths and
-`n_params` read, with the reference's defaults; the sharding and MoE
-dispatch knobs (`seq_parallel`, `moe_group`, `moe_pad_to`) and `unroll`
-come with the slices that use them (ROADMAP.md Queue 1). Every
+`n_params` read, with the reference's defaults, the MoE dispatch knobs
+(`moe_group`, the dispatch group of prefill and training; `moe_pad_to`,
+dead expert slots) among them; `seq_parallel` and `unroll` come with the
+slices that use them (ROADMAP.md Queue 1). Every
 architecture the port serves has a module in `repro_torch/configs/` with
 `config()` (the published hyperparameters) and `reduced()` (a tiny
 same-family config for CPU tests); `configs/registry.py` resolves
@@ -42,7 +43,9 @@ class LMConfig:
     cp_degree: int = 0               # context-parallel attention blocks
     q_chunk: int = 512               # flash_attention query block
     k_chunk: int = 1024              # flash_attention key block
-    # MLA fields (read by n_params only: MLA blocks are not ported yet)
+    moe_group: int = 512             # MoE dispatch group size
+    moe_pad_to: int = 0              # pad expert count (EP divisibility)
+    # MLA fields
     q_lora_rank: int = 0
     kv_lora_rank: int = 0
     qk_nope_head_dim: int = 0

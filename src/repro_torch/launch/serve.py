@@ -4,6 +4,10 @@ query serving through the `api` session layer and the `runtime` service.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --tokens 16 --batch 4                 # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b \\
+      --device cpu          # any LM id of configs/registry.py: qwen2-1.5b,
+                            # chatglm3-6b, minicpm3-4b, qwen3-moe-30b-a3b,
+                            # granite-moe-3b-a800m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch match \\
       --dataset yeast --scale 0.05 --n-queries 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch match \\
@@ -145,7 +149,8 @@ def serve_match_loop(args) -> dict:
 def parse_args(argv=None):
     """The launcher's arguments (`main`'s parser)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--arch", default="qwen2-1.5b",
+                    help="an LM id of configs/registry.py, or match")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--device", default=None,

@@ -6,6 +6,8 @@ bundle, with checkpoints and restart on failure, on one device.
   PYTHONPATH=src python -m repro_torch.launch.train --steps 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --full --batch 4 \\
       --seq 4096 --steps 3                  # qwen2-1.5b at full width
+  PYTHONPATH=src python -m repro_torch.launch.train --arch \\
+      granite-moe-3b-a800m --steps 4 --device cpu   # any LM id
 
 Prints `device=… steps=… restarts=…` and `loss a -> b`, the reference
 launcher's two lines. Data- and model-parallel meshes (`--data-axis`,
@@ -25,7 +27,8 @@ __all__ = ["parse_args", "main"]
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--arch", default="qwen2-1.5b",
+                    help="an LM id of configs/registry.py")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

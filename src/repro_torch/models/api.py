@@ -1,6 +1,7 @@
 """Model API of the port: `build_bundle(arch)` → init, optimizer, step
 functions, inputs and model FLOPs for every LM shape (train, prefill,
-decode).
+decode), for each of the five LM architectures of the registry (dense
+GQA, partial rotary, MLA, MoE).
 
     bundle = build_bundle("qwen2-1.5b", reduced=True, device="cpu")
     model = bundle.init_fn(0)
@@ -58,9 +59,14 @@ def build_bundle(arch: str, *, reduced: bool = False,
     opt = AdamW(lr=3e-4)
 
     def init_fn(seed: int = 0, dtype=torch.float32):
+        """The model with each weight drawn on the device and stored in
+        `dtype` as it is made (one float32 draw of one tensor at a time,
+        never a float32 copy of the model)."""
         return T.lm_init(cfg, seed=seed, device=dev, dtype=dtype)
 
     def init_caches(batch: int, max_len: int, dtype=torch.bfloat16):
+        """Zero decode caches in the attention's layout: GQA {"k", "v"},
+        MLA {"c_kv", "k_rope"}, stacked over layers."""
         return T.lm_init_caches(cfg, batch, max_len, dtype=dtype, device=dev)
 
     def train_step(model, opt_state, batch, *, dtype=torch.bfloat16):
@@ -126,6 +132,8 @@ def build_bundle(arch: str, *, reduced: bool = False,
                 "lengths": torch.from_numpy(lengths).to(dev)}
 
     def model_flops(shape_id):
+        """2 (6 in training) · active parameters (a MoE counts its top-k
+        experts only) · tokens, as the reference counts them."""
         kind, b, s = shape_dims(shape_id)
         n_active = cfg.n_active_params()
         if kind == "train":

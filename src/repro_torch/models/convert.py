@@ -3,7 +3,11 @@
 The reference keeps each block's parameters stacked over layers under
 `params["blocks"]` (leading axis L); the port keeps one module per layer
 with the same names. `lm_params_from_jax` maps the one onto the other, so
-both packages can run the same weights. It takes the tree as numpy arrays
+both packages can run the same weights: the attention's leaves (GQA's
+`attn.{wq,wk,wv,wo}`, MLA's `attn.{wdq,wuq,wdkv,wukv,wo}.w` and
+`attn.{q_norm,kv_norm}.g`), the FFN's (SwiGLU's `ffn.{wi,wg,wo}.w`, a
+MoE's `ffn.router.w` and its expert stacks `ffn.{wi,wg,wo}`, (L, E, ...)
+in the reference) and an untied `head.w`. It takes the tree as numpy arrays
 (or anything `np.asarray` reads) and imports nothing of JAX.
 """
 from __future__ import annotations

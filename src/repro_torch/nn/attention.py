@@ -1,6 +1,7 @@
-"""GQA attention for the LM: the four projections, flash-style chunked
+"""Attention for the LM: GQA (the four projections, flash-style chunked
 causal attention for train and prefill, the KV cache, and one decode step
-over the cache.
+over the cache) and MLA (compressed latent attention: the expanded path
+for train and prefill, the absorbed path for decode).
 
 `flash_attention` is the reference's exact online softmax over query and
 key blocks (plain jnp there, plain torch here): float32 scores and
@@ -10,8 +11,12 @@ so the backward keeps O(S) memory.
 The reference writes the new K/V row with a functional `.at[].set`, which
 copies the cache per layer. Here the cache is preallocated once and the
 step writes the row in place (same values, same positions), so a 30 GB
-cache is never copied. Attention runs through `kernels.ops.decode_attention`:
-the hand-written CUDA kernel on the card, its plain version on the CPU.
+cache is never copied. GQA decode attention runs through
+`kernels.ops.decode_attention`: the hand-written CUDA kernel on the card,
+its plain version on the CPU. MLA decode is plain torch, as the
+reference's is plain jnp: scores are taken in the latent space, in
+float32, against a (B, S, kv_lora_rank) cache plus a (B, S, rope) one, and
+its new latent row is written in place too.
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import ops as kops
 from . import core
 
-__all__ = ["GQA", "flash_attention", "init_kv_cache"]
+__all__ = ["GQA", "MLA", "flash_attention", "init_kv_cache",
+           "init_mla_cache"]
 
 _NEG = -1e30
 
@@ -115,13 +121,14 @@ class GQA(nn.Module):
     """Grouped-query attention: n_heads query heads share n_kv KV heads."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv: int, head_dim: int,
-                 *, qkv_bias: bool = False, gen: torch.Generator, device,
-                 dtype=torch.float32):
+                 *, qkv_bias: bool = False, rope_frac: float = 1.0,
+                 gen: torch.Generator, device, dtype=torch.float32):
         super().__init__()
         if n_heads % n_kv:
             raise ValueError(f"n_heads {n_heads} is not a multiple of "
                              f"n_kv {n_kv}")
         self.n_heads, self.n_kv, self.head_dim = n_heads, n_kv, head_dim
+        self.rope_frac = rope_frac
         kw = dict(gen=gen, device=device, dtype=dtype)
         self.wq = core.Dense(d_model, n_heads * head_dim, bias=qkv_bias, **kw)
         self.wk = core.Dense(d_model, n_kv * head_dim, bias=qkv_bias, **kw)
@@ -129,15 +136,17 @@ class GQA(nn.Module):
         self.wo = core.Dense(n_heads * head_dim, d_model, **kw)
 
     def qkv(self, x: torch.Tensor, positions: torch.Tensor):
-        """x (B, S, d_model), positions (B, S) → rotated q (B, S, H, D),
-        rotated k and v (B, S, Hkv, D)."""
+        """x (B, S, d_model), positions (B, S) or (S,) → q (B, S, H, D),
+        k and v (B, S, Hkv, D); q and k rotated on their first
+        rope_frac of D."""
         b, s, _ = x.shape
         h, n, d = self.n_heads, self.n_kv, self.head_dim
         q = core.dense(self.wq, x).reshape(b, s, h, d)
         k = core.dense(self.wk, x).reshape(b, s, n, d)
         v = core.dense(self.wv, x).reshape(b, s, n, d)
-        cos, sin = core.rope_angles(d, positions)
-        return core.apply_rope(q, cos, sin), core.apply_rope(k, cos, sin), v
+        cos, sin, rot = core.rope_angles(d, positions, frac=self.rope_frac)
+        return (core.apply_rope(q, cos, sin, rot),
+                core.apply_rope(k, cos, sin, rot), v)
 
     def forward(self, x: torch.Tensor, *, q_chunk: int = 512,
                 k_chunk: int = 1024) -> torch.Tensor:
@@ -177,3 +186,106 @@ def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int, *,
     shape = (batch, max_len, n_kv, head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ----------------------------------------------------------------------- MLA
+class MLA(nn.Module):
+    """Multi-head latent attention (minicpm3): queries through a low-rank
+    q_lora bottleneck, keys and values through one shared kv_lora latent
+    plus one rotary key of qk_rope_head_dim for all heads. Parameters carry
+    the reference's names: wdq, q_norm, wuq, wdkv, kv_norm, wukv, wo."""
+
+    def __init__(self, cfg, *, gen: torch.Generator, device,
+                 dtype=torch.float32):
+        super().__init__()
+        h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_head_dim,
+                         cfg.qk_rope_head_dim, cfg.v_head_dim)
+        self.n_heads, self.dn, self.dr, self.dv = h, dn, dr, dv
+        self.rank = cfg.kv_lora_rank
+        kw = dict(gen=gen, device=device, dtype=dtype)
+        self.wdq = core.Dense(cfg.d_model, cfg.q_lora_rank, **kw)
+        self.q_norm = core.RMSNorm(cfg.q_lora_rank, device=device,
+                                   dtype=dtype)
+        self.wuq = core.Dense(cfg.q_lora_rank, h * (dn + dr), **kw)
+        self.wdkv = core.Dense(cfg.d_model, cfg.kv_lora_rank + dr, **kw)
+        self.kv_norm = core.RMSNorm(cfg.kv_lora_rank, device=device,
+                                    dtype=dtype)
+        self.wukv = core.Dense(cfg.kv_lora_rank, h * (dn + dv), **kw)
+        self.wo = core.Dense(h * dv, cfg.d_model, **kw)
+
+    def qkv(self, x: torch.Tensor, positions: torch.Tensor):
+        """x (B, S, d_model) → q_nope (B, S, H, dn), rotated q_rope
+        (B, S, H, dr), the normalised latent c_kv (B, S, r) and the rotated
+        shared key k_rope (B, S, 1, dr)."""
+        b, s, _ = x.shape
+        h, dn, dr = self.n_heads, self.dn, self.dr
+        cos, sin, rot = core.rope_angles(dr, positions)
+        q = core.dense(self.wuq, core.rmsnorm(self.q_norm,
+                                              core.dense(self.wdq, x)))
+        q = q.reshape(b, s, h, dn + dr)
+        q_nope = q[..., :dn]
+        q_rope = core.apply_rope(q[..., dn:], cos, sin, rot)
+        dkv = core.dense(self.wdkv, x)
+        c_kv = core.rmsnorm(self.kv_norm, dkv[..., :self.rank])
+        k_rope = core.apply_rope(dkv[..., self.rank:].reshape(b, s, 1, dr),
+                                 cos, sin, rot)
+        return q_nope, q_rope, c_kv, k_rope
+
+    def forward(self, x: torch.Tensor, *, q_chunk: int = 512,
+                k_chunk: int = 1024) -> torch.Tensor:
+        """The expanded path (the reference's `mla_attention`): the latent
+        expanded to per-head keys and values, V zero-padded to dn + dr so
+        one causal `flash_attention` serves both; x (B, S, d_model) at
+        positions 0..S-1 → y (B, S, d_model)."""
+        b, s, _ = x.shape
+        h, dn, dr, dv = self.n_heads, self.dn, self.dr, self.dv
+        q_nope, q_rope, c_kv, k_rope = self.qkv(
+            x, torch.arange(s, device=x.device))
+        kv = core.dense(self.wukv, c_kv).reshape(b, s, h, dn + dv)
+        q = torch.cat([q_nope, q_rope], -1)
+        k = torch.cat([kv[..., :dn], k_rope.expand(b, s, h, dr)], -1)
+        v = nn.functional.pad(kv[..., dn:], (0, dn + dr - dv))
+        o = flash_attention(q, k, v, causal=True, q_chunk=q_chunk,
+                            k_chunk=k_chunk)
+        return core.dense(self.wo, o[..., :dv].reshape(b, s, h * dv))
+
+    @torch.no_grad()
+    def decode(self, x: torch.Tensor, c_cache: torch.Tensor,
+               kr_cache: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """The absorbed path (the reference's `mla_decode`): x (B, 1,
+        d_model), c_cache (B, S, r), kr_cache (B, S, dr), lengths (B,) int32
+        current fill (< S). Writes the new latent and rotary key at
+        position lengths[b] in place, then scores q_nope·W_uk·c_kv +
+        q_rope·k_rope over lengths + 1 positions and returns
+        (softmax·c_kv)·W_uv through wo, all in float32 until wo."""
+        b = x.shape[0]
+        h, dn, dv, r = self.n_heads, self.dn, self.dv, self.rank
+        q_nope, q_rope, c_new, kr_new = self.qkv(x, lengths[:, None])
+        bidx = torch.arange(b, device=x.device)
+        pos = lengths.long()
+        c_cache[bidx, pos] = c_new[:, 0].to(c_cache.dtype)
+        kr_cache[bidx, pos] = kr_new[:, 0, 0].to(kr_cache.dtype)
+        wukv = self.wukv.w.float().reshape(r, h, dn + dv)
+        w_uk, w_uv = wukv[..., :dn], wukv[..., dn:]
+        c_kv = c_cache.float()
+        q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), w_uk)
+        s_lat = torch.einsum("bhr,bsr->bhs", q_lat, c_kv)
+        s_rope = torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
+                              kr_cache.float())
+        scores = (s_lat + s_rope) * (1.0 / math.sqrt(dn + self.dr))
+        live = (torch.arange(c_cache.shape[1], device=x.device)[None, None, :]
+                < (lengths + 1)[:, None, None])
+        p = torch.softmax(torch.where(live, scores, _NEG), dim=-1)
+        o_lat = torch.einsum("bhs,bsr->bhr", p, c_kv)
+        o = torch.einsum("bhr,rhd->bhd", o_lat, w_uv)
+        return core.dense(self.wo, o.reshape(b, 1, h * dv).to(x.dtype))
+
+
+def init_mla_cache(batch: int, max_len: int, kv_lora_rank: int,
+                   rope_dim: int, *, dtype=torch.bfloat16, device) -> dict:
+    """Zero MLA caches: {"c_kv" (batch, max_len, kv_lora_rank), "k_rope"
+    (batch, max_len, rope_dim)}."""
+    return {"c_kv": torch.zeros((batch, max_len, kv_lora_rank), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, max_len, rope_dim), dtype=dtype,
+                                  device=device)}

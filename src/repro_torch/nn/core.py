@@ -11,8 +11,8 @@ numerics:
 - `dense` casts the weight to x's dtype before the product;
 - `rmsnorm` normalises in float32, casts to x's dtype, and only then
   multiplies by `g` (not `torch.nn.functional.rms_norm`'s order);
-- `apply_rope` rotates interleaved pairs (dims 0::2 with 1::2), with cos
-  and sin cast to x's dtype first.
+- `apply_rope` rotates interleaved pairs (dims 0::2 with 1::2) of the
+  first `rot` dims, with cos and sin cast to x's dtype first.
 
 Initialisers draw from an explicit `torch.Generator`; they follow the
 reference's distributions, not its bits.
@@ -73,28 +73,42 @@ def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 # ----------------------------------------------------------------- rotary
 def rope_angles(head_dim: int, positions: torch.Tensor,
-                base: float = 10000.0):
-    """Rotary angles over the whole head_dim (the reference's frac = 1).
-    positions: any int tensor; returns (cos, sin), each of shape
-    positions.shape + (head_dim // 2,), computed on the fly (no
-    (max_seq, head_dim/2) table)."""
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=positions.device) / head_dim
+                base: float = 10000.0, frac: float = 1.0):
+    """Rotary angles for the first `frac` of head_dim (chatglm3's 2-D
+    rotary uses frac = 0.5). positions: any int tensor; returns (cos, sin,
+    rot) with rot = int(head_dim * frac) rounded down to even and cos/sin
+    of shape positions.shape + (rot // 2,), frequencies taken over rot;
+    computed on the fly (no (max_seq, rot/2) table)."""
+    rot = int(head_dim * frac)
+    rot -= rot % 2
+    if rot == 0:
+        z = torch.zeros(positions.shape + (0,), dtype=torch.float32,
+                        device=positions.device)
+        return z, z, 0
+    exps = torch.arange(0, rot, 2, dtype=torch.float32,
+                        device=positions.device) / rot
     inv = 1.0 / (base ** exps)
     ang = positions.float()[..., None] * inv
-    return torch.cos(ang), torch.sin(ang)
+    return torch.cos(ang), torch.sin(ang), rot
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> torch.Tensor:
-    """x (..., S, H, D); rotary on interleaved pairs (dims 0::2 with 1::2).
-    cos/sin broadcast over the head axis: (..., S, D/2)."""
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               rot: int) -> torch.Tensor:
+    """x (..., S, H, D); rotary on interleaved pairs (dims 0::2 with 1::2)
+    of dims [0, rot), the rest passed through. cos/sin broadcast over the
+    head axis: (..., S, rot/2)."""
+    if rot == 0:
+        return x
     c = cos[..., :, None, :].to(x.dtype)
     si = sin[..., :, None, :].to(x.dtype)
-    x1, x2 = x[..., 0::2], x[..., 1::2]
+    xr = x[..., :rot]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
     y1 = x1 * c - x2 * si
     y2 = x2 * c + x1 * si
-    return torch.stack([y1, y2], dim=-1).reshape(x.shape)
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
+    if rot == x.shape[-1]:
+        return yr
+    return torch.cat([yr, x[..., rot:]], dim=-1)
 
 
 # ----------------------------------------------------------------- MLP

@@ -1,7 +1,8 @@
-"""Decoder-only transformer: pre-norm GQA blocks in a `ModuleList` (the
-reference scans over stacked layer parameters), SwiGLU FFN, and the LM
-head tied to the embedding; the forward pass, the chunked next-token
-loss, prefill logits and the decode step.
+"""Decoder-only transformer: pre-norm blocks in a `ModuleList` (the
+reference scans over stacked layer parameters), GQA (with partial rotary)
+or MLA attention, a SwiGLU or MoE FFN, and the LM head (tied to the
+embedding, or a `head` Dense); the forward pass, the chunked next-token
+loss (+ 0.01 · the MoE aux loss), prefill logits and the decode step.
 
     model = lm_init(cfg, seed=0, device="cpu")
     loss, metrics = lm_loss(model, tokens)        # differentiable
@@ -13,8 +14,12 @@ With `cfg.remat` each block runs under `torch.utils.checkpoint` when
 gradients are on (the reference's `jax.checkpoint`); prefill and decode
 run under `torch.no_grad()`.
 
-Caches are stacked over layers, {"k", "v"} each (L, B, S, Hkv, D), as the
-reference stacks them; layer i reads and writes the contiguous view [i].
+Caches are stacked over layers, as the reference stacks them: GQA's
+{"k", "v"} each (L, B, S, Hkv, D), MLA's {"c_kv" (L, B, S, kv_lora_rank),
+"k_rope" (L, B, S, qk_rope_head_dim)}; layer i reads and writes the
+contiguous view [i]. A MoE block routes prefill and training in groups of
+`cfg.moe_group` positions and a decode step over the batch, in groups of
+the reference's default 512 rows (`nn/moe.py`).
 """
 from __future__ import annotations
 
@@ -25,20 +30,19 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import LMConfig
 from . import attention as attn
 from . import core
+from .moe import MoE, moe_ffn
 
 __all__ = ["Block", "LM", "lm_init", "lm_forward", "lm_loss",
            "lm_prefill_logits", "lm_init_caches", "lm_decode_step"]
 
 
 class Block(nn.Module):
+    """ln1, attn (GQA or MLA), ln2, ffn (SwiGLU or MoE): the reference's
+    `_block_init`."""
+
     def __init__(self, cfg: LMConfig, *, gen: torch.Generator, device,
                  dtype=torch.float32):
         super().__init__()
-        if cfg.attention != "gqa" or cfg.moe_experts or cfg.rope_frac != 1.0:
-            raise NotImplementedError(
-                f"{cfg.name}: only dense GQA blocks with full rotary are "
-                "ported; MLA, MoE and rope_frac < 1 wait for later slices "
-                "(ROADMAP.md Queue 1)")
         if cfg.cp_degree:
             raise NotImplementedError(
                 f"{cfg.name}: cp_degree {cfg.cp_degree}: context-parallel "
@@ -47,28 +51,35 @@ class Block(nn.Module):
         kw = dict(gen=gen, device=device, dtype=dtype)
         self.ln1 = core.RMSNorm(cfg.d_model, device=device, dtype=dtype)
         self.ln2 = core.RMSNorm(cfg.d_model, device=device, dtype=dtype)
-        self.attn = attn.GQA(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                             cfg.head_dim, qkv_bias=cfg.qkv_bias, **kw)
-        self.ffn = core.SwiGLU(cfg.d_model, cfg.d_ff, **kw)
+        if cfg.attention == "mla":
+            self.attn = attn.MLA(cfg, **kw)
+        else:
+            self.attn = attn.GQA(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.head_dim, qkv_bias=cfg.qkv_bias,
+                                 rope_frac=cfg.rope_frac, **kw)
+        if cfg.moe_experts:
+            self.ffn = MoE(cfg.d_model, cfg.d_ff, cfg.moe_experts,
+                           pad_to=cfg.moe_pad_to, **kw)
+        else:
+            self.ffn = core.SwiGLU(cfg.d_model, cfg.d_ff, **kw)
 
 
 class LM(nn.Module):
-    """Parameters: embed.table, blocks.{i}.{ln1,ln2,attn,ffn}, ln_f.g — the
-    reference's tree paths. The LM head is the embedding (tied)."""
+    """Parameters: embed.table, blocks.{i}.{ln1,ln2,attn,ffn}, ln_f.g and,
+    when the embeddings are not tied, head.w — the reference's tree
+    paths."""
 
     def __init__(self, cfg: LMConfig, *, gen: torch.Generator, device,
                  dtype=torch.float32):
         super().__init__()
-        if not cfg.tie_embeddings:
-            raise NotImplementedError(
-                f"{cfg.name}: only tied embeddings are ported (ROADMAP.md "
-                "Queue 1)")
         self.cfg = cfg
         kw = dict(gen=gen, device=device, dtype=dtype)
         self.embed = core.Embedding(cfg.vocab, cfg.d_model, **kw)
         self.blocks = nn.ModuleList(Block(cfg, **kw)
                                     for _ in range(cfg.n_layers))
         self.ln_f = core.RMSNorm(cfg.d_model, device=device, dtype=dtype)
+        self.head = (None if cfg.tie_embeddings
+                     else core.Dense(cfg.d_model, cfg.vocab, **kw))
 
 
 def lm_init(cfg: LMConfig, *, seed: int = 0, device,
@@ -84,35 +95,54 @@ def lm_init(cfg: LMConfig, *, seed: int = 0, device,
 
 def lm_init_caches(cfg: LMConfig, batch: int, max_len: int, *,
                    dtype=torch.bfloat16, device) -> dict:
-    """Zero caches stacked over layers: {"k", "v"}, (L, B, S, Hkv, D)."""
+    """Zero caches stacked over layers: GQA {"k", "v"} (L, B, S, Hkv, D);
+    MLA {"c_kv" (L, B, S, r), "k_rope" (L, B, S, dr)}."""
+    if cfg.attention == "mla":
+        one = {"c_kv": cfg.kv_lora_rank, "k_rope": cfg.qk_rope_head_dim}
+        return {name: torch.zeros((cfg.n_layers, batch, max_len, width),
+                                  dtype=dtype, device=device)
+                for name, width in one.items()}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {name: torch.zeros(shape, dtype=dtype, device=device)
             for name in ("k", "v")}
 
 
 def _logits(model: LM, h: torch.Tensor) -> torch.Tensor:
-    return h @ model.embed.table.to(h.dtype).T
+    if model.head is None:
+        return h @ model.embed.table.to(h.dtype).T
+    return core.dense(model.head, h)
 
 
-def _block_apply(blk: Block, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+def _ffn(blk: Block, cfg: LMConfig, y: torch.Tensor, **moe_kw):
+    """The block's FFN output and its aux loss (None for a dense FFN)."""
+    if cfg.moe_experts:
+        return moe_ffn(blk.ffn, y, n_experts=cfg.moe_experts,
+                       top_k=cfg.moe_top_k, **moe_kw)
+    return core.swiglu(blk.ffn, y), None
+
+
+def _block_apply(blk: Block, cfg: LMConfig, x: torch.Tensor):
     y = core.rmsnorm(blk.ln1, x)
     x = x + blk.attn(y, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
     y = core.rmsnorm(blk.ln2, x)
-    return x + core.swiglu(blk.ffn, y)
+    f, aux = _ffn(blk, cfg, y, group_size=cfg.moe_group)
+    return x + f, aux
 
 
 def lm_forward(model: LM, tokens: torch.Tensor, *, dtype=torch.bfloat16):
-    """tokens (B, S) → hidden (B, S, d_model) in `dtype`, aux loss (a
-    float32 zero: the ported blocks are dense)."""
+    """tokens (B, S) → hidden (B, S, d_model) in `dtype`, aux loss (float32:
+    the sum of the MoE blocks' Switch losses, zero for dense blocks)."""
     cfg = model.cfg
     x = core.embed(model.embed, tokens, dtype=dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for blk in model.blocks:
         if remat:
-            x = checkpoint(_block_apply, blk, cfg, x, use_reentrant=False)
+            x, a = checkpoint(_block_apply, blk, cfg, x, use_reentrant=False)
         else:
-            x = _block_apply(blk, cfg, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _block_apply(blk, cfg, x)
+        if a is not None:
+            aux = aux + a
     return core.rmsnorm(model.ln_f, x), aux
 
 
@@ -128,7 +158,7 @@ def _ce_chunk(model: LM, h: torch.Tensor, targets: torch.Tensor):
 
 
 def lm_loss(model: LM, tokens: torch.Tensor, *, dtype=torch.bfloat16):
-    """Next-token cross entropy (+ 0.01 · the aux loss), over sequence
+    """Next-token cross entropy (+ 0.01 · the MoE aux loss), over sequence
     chunks of `cfg.loss_chunk` positions, each under checkpoint when
     gradients are on, so at most one (B, chunk, V) float32 logits slab is
     live. Returns (loss, {"nll", "aux"})."""
@@ -163,13 +193,21 @@ def lm_decode_step(model: LM, token: torch.Tensor, caches: dict,
     """token (B,) last generated token; caches stacked (L, ...), written in
     place at position lengths[b]; lengths (B,) int32 current fill.
     Returns (logits (B, V) in `dtype`, caches). `use_kernel=False` runs
-    attention through its plain version on any device."""
+    GQA attention through its plain version on any device (MLA decode is
+    plain torch either way)."""
+    cfg = model.cfg
     x = core.embed(model.embed, token[:, None], dtype=dtype)
     for i, blk in enumerate(model.blocks):
         y = core.rmsnorm(blk.ln1, x)
-        x = x + blk.attn.decode(y, caches["k"][i], caches["v"][i], lengths,
-                                use_kernel=use_kernel)
+        if cfg.attention == "mla":
+            x = x + blk.attn.decode(y, caches["c_kv"][i],
+                                    caches["k_rope"][i], lengths)
+        else:
+            x = x + blk.attn.decode(y, caches["k"][i], caches["v"][i],
+                                    lengths, use_kernel=use_kernel)
         y = core.rmsnorm(blk.ln2, x)
-        x = x + core.swiglu(blk.ffn, y)
+        # a decode step groups its MoE over the batch, in groups of the
+        # reference's default size (not cfg.moe_group)
+        x = x + _ffn(blk, cfg, y)[0]
     h = core.rmsnorm(model.ln_f, x)
     return _logits(model, h)[:, 0], caches

@@ -85,15 +85,25 @@ def test_config_is_the_reference_config(reduced):
 
 
 def test_unported_arch_and_blocks_name_the_roadmap():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        registry.get_config("chatglm3-6b")
+    """The registry holds the reference's five LM ids, with its order and
+    shapes; its GNN and recsys ids, and context-parallel attention
+    (cp_degree > 0), still raise and name ROADMAP.md."""
+    lm_ids = [a for a in jregistry.arch_ids()
+              if jregistry.get_config(a).family == "lm"]
+    assert list(registry.ARCHS) == registry.arch_ids() == lm_ids
+    assert len(lm_ids) == 5
+    for arch in lm_ids:
+        assert registry.shapes_for(arch) == jregistry.shapes_for(arch)
+        for reduced in (False, True):
+            assert registry.get_config(arch, reduced=reduced).name \
+                == jregistry.get_config(arch, reduced=reduced).name
+    for arch in ("gatedgcn", "bert4rec"):
+        for call in (registry.get_config, registry.shapes_for):
+            with pytest.raises(KeyError, match="ROADMAP"):
+                call(arch)
     cfg = registry.get_config(ARCH, reduced=True)
-    for change in ({"rope_frac": 0.5}, {"attention": "mla"},
-                   {"moe_experts": 4}, {"tie_embeddings": False},
-                   {"cp_degree": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.lm_init(dataclasses.replace(cfg, **change), device="cpu")
-    assert list(registry.ARCHS) == [ARCH]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.lm_init(dataclasses.replace(cfg, cp_degree=2), device="cpu")
 
 
 # ------------------------------------------------------------- primitives
@@ -118,12 +128,12 @@ def test_primitives_match_the_reference(dtype):
         atol=tol, rtol=tol)
 
     pos = rng.integers(0, 300, (3, 2))
-    cos, sin = core.rope_angles(16, torch.from_numpy(pos))
+    cos, sin, rot = core.rope_angles(16, torch.from_numpy(pos))
     jcos, jsin, jrot = jcore.rope_angles(16, jnp.asarray(pos))
-    assert jrot == 16
+    assert rot == jrot == 16
     np.testing.assert_allclose(_np(cos), _np(jcos), atol=F32_ATOL)
     np.testing.assert_allclose(
-        _np(core.apply_rope(xt, cos, sin)),
+        _np(core.apply_rope(xt, cos, sin, rot)),
         _np(jcore.apply_rope(xj, jcos, jsin, jrot)), atol=tol, rtol=tol)
 
     ffn = core.SwiGLU(16, 24, gen=gen, device="cpu")

@@ -1,6 +1,7 @@
 """Helpers shared by the LM tests of the port: the reference's reduced
-qwen2-1.5b weights with seeded noise on the biases and gains, the port's
-model on the same weights, and conversions to numpy."""
+weights of an architecture (qwen2-1.5b unless named) with seeded noise on
+the biases and gains, the port's model on the same weights, and
+conversions to numpy."""
 import numpy as np
 import torch
 
@@ -22,10 +23,11 @@ def to_np(x):
         else np.asarray(x).astype(np.float32)
 
 
-def perturbed_params(seed=0):
-    """The reference's init with its zero biases and all-ones norm gains
-    replaced by seeded noise, so a wrong mapping of any leaf shows."""
-    params = jax_build_bundle(ARCH, reduced=True).init_fn(
+def perturbed_params(seed=0, arch=ARCH):
+    """The reference's init of `arch`'s reduced config with its zero biases
+    and all-ones norm gains replaced by seeded noise, so a wrong mapping of
+    any leaf shows."""
+    params = jax_build_bundle(arch, reduced=True).init_fn(
         jax.random.PRNGKey(seed))
     rng = np.random.default_rng(seed + 1)
 
