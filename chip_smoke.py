@@ -215,6 +215,37 @@ Phases, in order; any failure exits non-zero:
               2 against the same tokens decoded one by one (float32, last
               logits within LM_32K_F32_ATOL; for minicpm3 the absorbed
               decode against the expanded path). Prints phase 5c's wall;
+  5d. recsys and GNN stacks — run after phase 5c, float32 weights from
+              seed 0 and float32 activations (TF32 off); none of it
+              launches a kernel of the kernels line (counts set to 0 just
+              before each path and read just after; each row of the line
+              records them). `python -m repro_torch.launch.serve --arch
+              bert4rec` (its `main`: the reduced serve_p99 batch on the
+              card). The reduced bert4rec, card against CPU: serve's top-10
+              (both held against the CPU's float64 recompute), retrieval
+              scores, one train step (loss, gnorm, gradients, parameters by
+              phase 5c's rule: 1e-5 where |g| >= ADAM_G_FLOOR, 2·lr
+              elsewhere). bert4rec at full width (embed 64, 2 blocks, 2
+              heads, seq 200, 10^6 items): serve_p99 at batch 512 and
+              serve_bulk cut to 4,096 rows (ms a batch, median of 5 warm,
+              queries/s; the top-10 held against h @ table.T in float64 on
+              the card, all rows and the first 256: values within
+              RECSYS_TOPK_RTOL of the row's largest, the same items
+              wherever the 10th and 11th scores are farther apart);
+              retrieval_cand (batch 1 x 10^6 candidates, its scores held
+              likewise); train_batch cut to 4,096 rows, batch_chunk 32: a
+              warm step and 3 timed, losses finite, every parameter
+              changed, ms a step, masked items/s, share of the float32
+              peak by model_flops, peak memory. Then gatedgcn, nequip,
+              dimenet and equiformer-v2 at published widths: the reduced
+              model card against CPU on molecule and full_graph_sm (one
+              train step, as bert4rec's); a warm train step and 3 timed on
+              molecule and full_graph_sm, and on minibatch_lg uncut where
+              `gnn_bytes` reckons it within GNN_BYTES_BUDGET, else with its
+              seeds cut to the largest multiple of 128 that fits
+              (equiformer-v2: 512 of 1,024); ms a step, peak memory, model_flops over the time as
+              a share of the float32 peak (F32_PEAK_FLOPS). Prints phase
+              5d's wall; `run_phase_5d(dev, card)` runs it alone;
   6. timing — each kernel's median device time at its path's shapes beside
               its plain version's, its bound and, for flash_decode, the
               time of `scaled_dot_product_attention`, the achieved bytes/s
@@ -228,7 +259,8 @@ Phases, in order; any failure exits non-zero:
               an L2 flush;
   7. summary — the kernels line, the card, one JSON line of per-kernel
               numbers (flash_decode's with phase 5c's launches and its
-              times at phase 5c's shapes), and last the line
+              times at phase 5c's shapes; each row with phase 5d's 0
+              launches by path), and last the line
               {"ok": true, "device": {"platform": "gpu", ...}}.
 
 It imports nothing of jax or of the JAX package `repro`.
@@ -566,6 +598,37 @@ FAMILY_REDUCED_STEPS = 8
 # first steps can differ, and every gradient (m / (1 - b1)) within
 # TRAIN_F32_PARAM_ATOL of its leaf's largest.
 ADAM_G_FLOOR = 1e-6
+# Phase 5d: bert4rec and the four GNNs at their published widths, float32
+# weights from seed 0 and float32 activations (TF32 off). bert4rec's
+# serve_bulk batch is cut 262,144 -> 4,096 (its (B, 10^6) float32 scores
+# are 1.05 TB at 262,144, 16.4 GB at 4,096); train_batch's batch 65,536 ->
+# 4,096 and batch_chunk 256 -> 32 (one chunk's float32 logits are 39.9 GB
+# at 256 x 39 masked positions, 5.0 GB at 32, and their gradient as much
+# again). A GNN's minibatch_lg runs uncut where the reckoning of
+# `gnn_bytes` fits GNN_BYTES_BUDGET, else with its seeds cut to the largest
+# multiple of GNN_SEED_STEP that fits (`reckon_sampled`).
+RECSYS_ARCH = "bert4rec"
+RECSYS_BULK_BATCH = 4096
+RECSYS_TRAIN_BATCH, RECSYS_TRAIN_CHUNK = 4096, 32
+RECSYS_STEPS = 3                  # timed, after a warm one
+RECSYS_TIMED_CALLS = 5            # serve and retrieval: median of 5, warm
+RECSYS_HELD_BULK_ROWS = 256       # serve_bulk rows held against float64
+# top-k values against a float64 recompute, relative to the row's largest
+# score (float32 products of 64 terms); indices held wherever the k-th and
+# (k+1)-th float64 scores are farther apart than that
+RECSYS_TOPK_RTOL = 1e-4
+GNN_ARCHS = ("gatedgcn", "nequip", "dimenet", "equiformer-v2")
+GNN_TRAIN_SHAPES = ("molecule", "full_graph_sm")
+GNN_SAMPLED_SHAPE = "minibatch_lg"
+GNN_STEPS = 3                     # timed, after a warm one
+GNN_BYTES_BUDGET = 64e9           # of the card's 80 GB: room for the rest
+GNN_SEED_STEP = 128
+# card against CPU, reduced, float32: each gradient leaf within
+# TRAIN_F32_PARAM_ATOL of its largest |g| or GRAD_FLOOR, where larger (a
+# leaf whose true gradient is zero, as EquiformerV2's alpha MLP's last
+# bias, a shift of every score of a softmax, carries rounding noise only)
+GRAD_FLOOR = 1e-7
+F32_PEAK_FLOPS = 67e12     # H100 SXM float32 off the tensor cores, data sheet
 
 
 def card_line() -> str:
@@ -3055,6 +3118,507 @@ def run_phase_5c(dev, card: str) -> dict:
     return res
 
 
+def kernel_launch_counts(bi, fd) -> dict:
+    """Each kernel of the kernels line: its launches since the last reset."""
+    return {**{fn.__name__: fn.launches for fn in bi.WRAPPERS},
+            "flash_decode": fd.flash_decode.launches}
+
+
+def reset_kernel_launches(bi, fd) -> None:
+    bi.reset_launches()
+    fd.reset_launches()
+
+
+def require_no_launches(where: str, counts: dict) -> None:
+    """Phase 5d's paths reach none of the three kernels."""
+    if any(counts.values()):
+        raise SystemExit(f"{where} launched kernels {counts}; its path has "
+                         "none")
+
+
+def timed_ms(fn, dev, n: int) -> list:
+    """Host-clock ms of n synchronised calls of fn."""
+    out = []
+    for _ in range(n):
+        sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def peak_bytes(dev) -> int:
+    return torch.cuda.max_memory_allocated(dev)
+
+
+def reset_peak(dev) -> None:
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def held_top_k(vals, idx, scores64, rtol: float, where: str) -> dict:
+    """(vals, idx), a top-k in float32, against `scores64` (B, V): the
+    float64 top-k's values within rtol of the row's largest |score|, the
+    float64 scores of the chosen items likewise (each chosen item really
+    scores so, in that order), and the chosen set equal to the float64
+    top-k's on every row where its k-th and (k+1)-th scores are farther
+    apart than that."""
+    k = idx.shape[1]
+    ref_v, ref_i = torch.topk(scores64, k + 1, dim=-1)
+    scale = ref_v.abs().amax(-1, keepdim=True).clamp(min=1e-30) * rtol
+    err_v = float(((vals.double() - ref_v[:, :k]).abs() / scale).max())
+    chosen = scores64.gather(1, idx.long())
+    err_c = float(((chosen - ref_v[:, :k]).abs() / scale).max())
+    clear = (ref_v[:, k - 1] - ref_v[:, k]) > scale[:, 0]
+    same_set = (idx.long().sort(-1).values
+                == ref_i[:, :k].sort(-1).values).all(-1)
+    bad = int((clear & ~same_set).sum())
+    if not (err_v <= 1 and err_c <= 1 and bad == 0):
+        raise SystemExit(f"{where}: top-{k} against the float64 recompute: "
+                         f"values {err_v:.3g} x the tolerance, chosen items' "
+                         f"scores {err_c:.3g} x, {bad} rows with a clear "
+                         "boundary choose other items")
+    return {"rows": idx.shape[0], "rows_with_clear_boundary": int(clear.sum()),
+            "rows_equal_in_order": int((idx.long() == ref_i[:, :k])
+                                       .all(-1).sum()),
+            "max_err_over_tol": max(err_v, err_c)}
+
+
+def scores64(model, ids, table):
+    """The last position's hidden state (the encoder in float32) against
+    `table` (V, D), recomputed in float64."""
+    from repro_torch.nn import transformer as T
+    with torch.no_grad():
+        h = T.encoder_forward(model, ids)[:, -1]
+    return h.double() @ table.double().T
+
+
+def drive_recsys_serve(bundle, model, shape: str, dev, *, batch=None,
+                       held_rows=None) -> dict:
+    """Phase 5d.2/4: the serve step on `shape`'s inputs (seed 0, `batch`
+    rows): warm, then RECSYS_TIMED_CALLS timed; the top-10 of the first
+    `held_rows` rows (all by default) held against h @ table.T in
+    float64."""
+    from repro_torch.config import RECSYS_SHAPES
+    inputs = bundle.make_inputs(shape, seed=0, batch=batch)
+    b = inputs["ids"].shape[0]
+    reset_peak(dev)
+    out = {}
+    step = bundle.steps["serve"]
+    ms = timed_ms(lambda: out.update(r=step(model, inputs)), dev,
+                  1 + RECSYS_TIMED_CALLS)
+    vals, idx = out["r"]
+    peak = peak_bytes(dev)
+    rows = slice(0, held_rows or b)
+    held = held_top_k(vals[rows], idx[rows],
+                      scores64(model, inputs["ids"][rows],
+                               model.embed.table.detach()),
+                      RECSYS_TOPK_RTOL, f"{RECSYS_ARCH} {shape}")
+    warm = float(np.median(ms[1:]))
+    flops = (bundle.model_flops(shape) * b / RECSYS_SHAPES[shape]["batch"])
+    return {"shape": shape, "batch": b,
+            "batch_cut_from": RECSYS_SHAPES[shape]["batch"], "ms": ms,
+            "ms_per_batch": warm, "queries_per_s": b / (warm / 1e3),
+            "model_flops": flops,
+            "f32_peak_share": flops / (warm / 1e3) / F32_PEAK_FLOPS,
+            "scores_bytes": b * bundle.cfg.n_items * 4,
+            "peak_bytes": peak, "held": held}
+
+
+def drive_recsys_retrieval(bundle, model, dev) -> dict:
+    """Phase 5d.3: retrieval_cand, batch 1 against 10^6 candidates: warm,
+    then RECSYS_TIMED_CALLS timed; the scores held against the float64
+    recompute within RECSYS_TOPK_RTOL of the largest."""
+    inputs = bundle.make_inputs("retrieval_cand", seed=0)
+    out = {}
+    step = bundle.steps["retrieval"]
+    ms = timed_ms(lambda: out.update(s=step(model, inputs)), dev,
+                  1 + RECSYS_TIMED_CALLS)
+    cand = model.embed.table.detach()[inputs["candidate_ids"].long()]
+    want = scores64(model, inputs["ids"], cand)
+    err = float((out["s"].double() - want).abs().max()
+                / want.abs().max())
+    if tuple(out["s"].shape) != tuple(want.shape) \
+            or not err <= RECSYS_TOPK_RTOL:
+        raise SystemExit(f"{RECSYS_ARCH} retrieval_cand: scores "
+                         f"{tuple(out['s'].shape)} against the float64 "
+                         f"recompute, {err:.3g} of the largest")
+    warm = float(np.median(ms[1:]))
+    return {"batch": 1, "candidates": inputs["candidate_ids"].shape[0],
+            "ms": ms, "ms_per_query": warm,
+            "model_flops": bundle.model_flops("retrieval_cand"),
+            "rel_err_vs_float64": err}
+
+
+def drive_recsys_train(build_bundle, dev) -> dict:
+    """Phase 5d.5: train_batch at RECSYS_TRAIN_BATCH rows and batch_chunk
+    RECSYS_TRAIN_CHUNK: a warm step, then RECSYS_STEPS timed, on one
+    batch; losses finite and the parameters changed."""
+    from repro_torch.config import RECSYS_SHAPES
+    bundle = build_bundle(RECSYS_ARCH, device=dev,
+                          override={"batch_chunk": RECSYS_TRAIN_CHUNK})
+    model = bundle.init_fn(0)
+    inputs = bundle.make_inputs("train_batch", seed=0,
+                                batch=RECSYS_TRAIN_BATCH)
+    params = dict(model.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    state = bundle.optimizer.init(params)
+    reset_peak(dev)
+    losses = []
+
+    def step():
+        nonlocal state
+        _, state, met = bundle.steps["train"](model, state, inputs)
+        losses.append(float(met["loss"]))
+    ms = timed_ms(step, dev, 1 + RECSYS_STEPS)
+    peak = peak_bytes(dev)
+    changed = sum(int(not torch.equal(p.detach(), before[k]))
+                  for k, p in params.items())
+    if not (np.isfinite(losses).all() and changed == len(params)):
+        raise SystemExit(f"{RECSYS_ARCH} train_batch: losses {losses}, "
+                         f"{changed} of {len(params)} parameters changed")
+    warm = float(np.median(ms[1:]))
+    masked = int(inputs["mask_valid"].sum())
+    m = inputs["mask_idx"].shape[1]
+    spec_b = RECSYS_SHAPES["train_batch"]["batch"]
+    flops = bundle.model_flops("train_batch") * RECSYS_TRAIN_BATCH / spec_b
+    return {"batch": RECSYS_TRAIN_BATCH, "batch_cut_from": spec_b,
+            "batch_chunk": RECSYS_TRAIN_CHUNK, "max_masks": m,
+            "chunk_logits_bytes": RECSYS_TRAIN_CHUNK * m
+            * bundle.cfg.n_items * 4,
+            "losses": losses, "ms": ms, "ms_per_step": warm,
+            "masked_items": masked,
+            "masked_items_per_s": masked / (warm / 1e3),
+            "model_flops": flops,
+            "f32_peak_share": flops / (warm / 1e3) / F32_PEAK_FLOPS,
+            "peak_bytes": peak}
+
+
+def held_train_step(cpu, card, m_cpu, m_card, run_cpu, run_card,
+                    where: str) -> dict:
+    """One train step of the same weights on the card and the CPU
+    (float32): loss and gnorm within TRAIN_F32_RTOL relative; each
+    gradient leaf (the first moment / (1 - b1): the clipped gradient)
+    within TRAIN_F32_PARAM_ATOL of its largest or GRAD_FLOOR; parameters
+    within TRAIN_F32_PARAM_ATOL where |g| >= ADAM_G_FLOOR and 2·lr
+    elsewhere (phase 5c's rule, ADAM_G_FLOOR above)."""
+    p_cpu = dict(m_cpu.named_parameters())
+    p_card = dict(m_card.named_parameters())
+    s_cpu, s_card = cpu.optimizer.init(p_cpu), card.optimizer.init(p_card)
+    _, _, met_cpu = run_cpu(m_cpu, s_cpu)
+    _, _, met_card = run_card(m_card, s_card)
+    rel = {k: abs(float(met_card[k]) - float(met_cpu[k]))
+           / abs(float(met_cpu[k])) for k in ("loss", "gnorm")}
+    opt = cpu.optimizer
+    param_err, loose_err, grad_err, n_loose = 0.0, 0.0, 0.0, 0
+    for k, p in p_cpu.items():
+        g = s_cpu["m"][k] / (1 - opt.b1)
+        g_card = s_card["m"][k].cpu() / (1 - opt.b1)
+        grad_err = max(grad_err, float((g_card - g).abs().max()) / max(
+            TRAIN_F32_PARAM_ATOL * float(g.abs().max()), GRAD_FLOOR))
+        diff = (p_card[k].detach().cpu() - p.detach()).abs()
+        firm = g.abs() >= ADAM_G_FLOOR
+        if firm.any():
+            param_err = max(param_err, float(diff[firm].max()))
+        if not firm.all():
+            loose_err = max(loose_err, float(diff[~firm].max()))
+        n_loose += int((~firm).sum())
+    if not (max(rel.values()) <= TRAIN_F32_RTOL
+            and param_err <= TRAIN_F32_PARAM_ATOL and grad_err <= 1
+            and loose_err <= 2 * opt.lr):
+        raise SystemExit(f"{where} train step: card and CPU differ "
+                         f"(relative {rel}, gradients {grad_err} x the "
+                         f"tolerance, parameters max_abs_err {param_err} "
+                         f"where |g| >= {ADAM_G_FLOOR}, {loose_err} on the "
+                         f"{n_loose} other entries)")
+    return {"loss": float(met_cpu["loss"]), "rel_err": rel,
+            "grad_err_over_tol": grad_err, "param_max_abs_err": param_err,
+            "small_grad_entries": n_loose,
+            "small_grad_param_max_abs_err": loose_err}
+
+
+def check_recsys_reduced(build_bundle, dev) -> dict:
+    """Phase 5d.6: the reduced bert4rec in float32, card against CPU: the
+    serve step's top-10 (both held against the CPU's float64 recompute at
+    TRAIN_F32_RTOL), the retrieval scores (within TRAIN_F32_RTOL of the
+    largest) and one train step (`held_train_step`)."""
+    cpu = build_bundle(RECSYS_ARCH, reduced=True, device="cpu")
+    card = build_bundle(RECSYS_ARCH, reduced=True, device=dev)
+    m_cpu = cpu.init_fn(0)
+    m_card = card.init_fn(1)
+    m_card.load_state_dict(m_cpu.state_dict())
+    to_dev = lambda b: {k: v.to(dev) for k, v in b.items()}  # noqa: E731
+    serve = cpu.make_inputs("serve_p99", seed=0)
+    want64 = scores64(m_cpu, serve["ids"], m_cpu.embed.table.detach())
+    vals, idx = card.steps["serve"](m_card, to_dev(serve))
+    vals_c, idx_c = cpu.steps["serve"](m_cpu, serve)
+    held = {where: held_top_k(v.cpu(), i.cpu(), want64, TRAIN_F32_RTOL,
+                              f"reduced {RECSYS_ARCH} serve on the {where}")
+            for where, (v, i) in (("card", (vals, idx)),
+                                  ("cpu", (vals_c, idx_c)))}
+    retr = cpu.make_inputs("retrieval_cand", seed=0)
+    got = card.steps["retrieval"](m_card, to_dev(retr)).cpu()
+    want = cpu.steps["retrieval"](m_cpu, retr)
+    retr_err = float((got - want).abs().max() / want.abs().max())
+    if not retr_err <= TRAIN_F32_RTOL:
+        raise SystemExit(f"reduced {RECSYS_ARCH} retrieval: card and CPU "
+                         f"differ by {retr_err:.3g} of the largest score")
+    batch = cpu.make_inputs("train_batch", seed=0)
+    train = held_train_step(
+        cpu, card, m_cpu, m_card,
+        lambda m, s: cpu.steps["train"](m, s, batch),
+        lambda m, s: card.steps["train"](m, s, to_dev(batch)),
+        f"reduced {RECSYS_ARCH}")
+    return {"serve": held, "serve_indices_equal":
+            bool(torch.equal(idx.cpu(), idx_c)),
+            "retrieval_rel_err": retr_err, "train": train}
+
+
+def drive_recsys_launcher(serve, bi, fd) -> dict:
+    """Phase 5d.1: `python -m repro_torch.launch.serve --arch bert4rec` as
+    a user runs it (its `main`, no --device: the reduced config's
+    serve_p99 batch on the card)."""
+    reset_kernel_launches(bi, fd)
+    t0 = time.perf_counter()
+    rc = serve.main(["--arch", RECSYS_ARCH])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kernel_launch_counts(bi, fd)
+    if rc != 0:
+        raise SystemExit(f"serve --arch {RECSYS_ARCH} on the card: exit {rc}")
+    require_no_launches(f"serve --arch {RECSYS_ARCH}", counts)
+    return {"seconds": secs, "launches": counts}
+
+
+def gnn_bytes(cfg, n: int, e: int, t: int) -> int:
+    """A reckoning of one train step's live device bytes (float32), from the
+    shapes: each layer's checkpointed input kept for the backward, plus one
+    layer's recomputed activations and their gradients (counted as the
+    layer's largest per-edge tensors, a few times over). `drive_gnn_train`
+    records it beside each run's measured peak."""
+    c, L, f = cfg.d_hidden, cfg.n_layers, 4
+    if cfg.model == "gatedgcn":
+        return f * c * (L * (n + e) + 16 * e + 8 * n)
+    if cfg.model == "nequip":
+        lm = cfg.extra.get("l_max", 2)
+        coef = (lm + 1) ** 2
+        from repro_torch.models.gnn_models import NequIP
+        paths = len(NequIP.paths(lm))
+        return f * c * (L * n * coef + paths * e * 4 * (2 * lm + 1)
+                        + 4 * n * coef)
+    if cfg.model == "equiformer_v2":
+        coef = (cfg.extra.get("l_max", 6) + 1) ** 2
+        return f * c * coef * (L * n + 12 * e)
+    nb = cfg.extra.get("n_bilinear", 8)              # dimenet
+    return f * c * (L * e + 2 * nb * t + 6 * t + 8 * e)
+
+
+def reckon_sampled(bundle) -> dict:
+    """`gnn_bytes` of minibatch_lg uncut and, where that passes
+    GNN_BYTES_BUDGET, the largest multiple of GNN_SEED_STEP seeds that
+    fits, with its bytes."""
+    from repro_torch.config import GNN_SHAPES
+
+    def reckon(seeds):
+        spec = bundle.input_specs(GNN_SAMPLED_SHAPE, batch=seeds)
+        return gnn_bytes(bundle.cfg, spec["node_mask"][0][0],
+                         spec["edge_mask"][0][0],
+                         spec["t_kj"][0][0] if "t_kj" in spec else 0)
+    full = GNN_SHAPES[GNN_SAMPLED_SHAPE]["batch_nodes"]
+    out = {"bytes": reckon(None), "budget": GNN_BYTES_BUDGET, "seeds": None,
+           "seeds_cut_from": full}
+    if out["bytes"] > GNN_BYTES_BUDGET:
+        fits = [s for s in range(GNN_SEED_STEP, full, GNN_SEED_STEP)
+                if reckon(s) <= GNN_BYTES_BUDGET]
+        if not fits:
+            raise SystemExit(f"{bundle.arch} {GNN_SAMPLED_SHAPE}: even "
+                             f"{GNN_SEED_STEP} seeds reckon "
+                             f"{reckon(GNN_SEED_STEP):,} B")
+        out["seeds"] = fits[-1]
+        out["cut_bytes"] = reckon(fits[-1])
+    return out
+
+
+def drive_gnn_train(bundle, shape: str, dev, bi, fd, *, batch=None) -> dict:
+    """Phase 5d.7: GNN_STEPS train steps of `shape` (seed-0 inputs, cut to
+    `batch` seeds or molecules when given) after a warm one, on one batch:
+    losses finite, parameters changed, no kernel launched; ms a step, peak
+    memory, model_flops over the time as a share of the float32 peak."""
+    from repro_torch.config import GNN_SHAPES
+    t0 = time.perf_counter()
+    inputs = bundle.make_inputs(shape, seed=0, batch=batch)
+    sync(dev)
+    make_s = time.perf_counter() - t0
+    model = bundle.init_fn_for(shape)(0)
+    params = dict(model.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    state = bundle.optimizer.init(params)
+    step_fn = bundle.steps[GNN_SHAPES[shape]["kind"]]
+    losses = []
+
+    def step():
+        nonlocal state
+        _, state, met = step_fn(model, state, inputs)
+        losses.append(float(met["loss"]))
+    reset_peak(dev)
+    reset_kernel_launches(bi, fd)
+    ms = timed_ms(step, dev, 1 + GNN_STEPS)
+    counts = kernel_launch_counts(bi, fd)
+    peak = peak_bytes(dev)
+    changed = sum(int(not torch.equal(p.detach(), before[k]))
+                  for k, p in params.items())
+    where = f"{bundle.arch} {shape}"
+    require_no_launches(where, counts)
+    if not (np.isfinite(losses).all() and changed > 0):
+        raise SystemExit(f"{where}: losses {losses}, {changed} of "
+                         f"{len(params)} parameters changed")
+    warm = float(np.median(ms[1:]))
+    flops = bundle.model_flops(shape, batch=batch)
+    n, e = inputs["node_mask"].shape[0], inputs["edge_mask"].shape[0]
+    t = inputs["t_kj"].shape[0] if "t_kj" in inputs else None
+    return {"shape": shape, "batch": batch, "nodes": n, "edges": e,
+            "triplets": t,
+            "reckoned_bytes": gnn_bytes(bundle.cfg, n, e, t or 0),
+            "make_inputs_s": make_s, "losses": losses, "ms": ms,
+            "ms_per_step": warm, "model_flops": flops,
+            "f32_peak_share": flops / (warm / 1e3) / F32_PEAK_FLOPS,
+            "parameters": sum(p.numel() for p in params.values()),
+            "changed_leaves": changed, "peak_bytes": peak,
+            "launches": counts}
+
+
+def check_gnn_reduced(build_bundle, arch: str, shape: str, dev) -> dict:
+    """Phase 5d.8: `arch`'s reduced model on `shape` in float32, card
+    against CPU: one train step (`held_train_step`: loss, gradients,
+    the AdamW update)."""
+    from repro_torch.config import GNN_SHAPES
+    cpu = build_bundle(arch, reduced=True, device="cpu")
+    card = build_bundle(arch, reduced=True, device=dev)
+    m_cpu = cpu.init_fn_for(shape)(0)
+    m_card = card.init_fn_for(shape)(1)
+    m_card.load_state_dict(m_cpu.state_dict())
+    batch = cpu.make_inputs(shape, seed=0)
+    batch_card = {k: v.to(dev) for k, v in batch.items()}
+    kind = GNN_SHAPES[shape]["kind"]
+    return held_train_step(
+        cpu, card, m_cpu, m_card,
+        lambda m, s: cpu.steps[kind](m, s, batch),
+        lambda m, s: card.steps[kind](m, s, batch_card),
+        f"reduced {arch} {shape}")
+
+
+def run_phase_5d(dev, card: str) -> dict:
+    """Phase 5d: bert4rec and the four GNNs (module docstring). Returns
+    each path's kernel launches (all 0) under "launches"."""
+    from repro_torch.config import GNN_SHAPES
+    from repro_torch.kernels import bitmap_intersect as bi
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_bundle
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    res = {"launches": {}}
+    res["launcher"] = drive_recsys_launcher(serve, bi, fd)
+    res["launches"]["bert4rec serve --arch"] = res["launcher"]["launches"]
+    print(f"serve --arch {RECSYS_ARCH} on the card: "
+          + json.dumps(res["launcher"]), flush=True)
+    res["recsys_reduced"] = check_recsys_reduced(build_bundle, dev)
+    print(f"reduced {RECSYS_ARCH} on the card against the CPU, float32: "
+          + json.dumps(res["recsys_reduced"]), flush=True)
+
+    bundle = build_bundle(RECSYS_ARCH, device=dev)
+    model = bundle.init_fn(0)
+    cfg = bundle.cfg
+    print(f"{RECSYS_ARCH}: embed {cfg.embed_dim}, {cfg.n_blocks} blocks, "
+          f"{cfg.n_heads} heads, seq {cfg.seq_len}, {cfg.n_items:,} items; "
+          f"{sum(p.numel() for p in model.parameters()):,} parameters in "
+          "float32", flush=True)
+    for key, fn in (
+            ("serve_p99", lambda: drive_recsys_serve(
+                bundle, model, "serve_p99", dev)),
+            ("retrieval_cand", lambda: drive_recsys_retrieval(
+                bundle, model, dev)),
+            ("serve_bulk", lambda: drive_recsys_serve(
+                bundle, model, "serve_bulk", dev, batch=RECSYS_BULK_BATCH,
+                held_rows=RECSYS_HELD_BULK_ROWS))):
+        reset_kernel_launches(bi, fd)
+        r = fn()
+        r["launches"] = kernel_launch_counts(bi, fd)
+        require_no_launches(f"{RECSYS_ARCH} {key}", r["launches"])
+        res[key] = r
+        res["launches"][f"{RECSYS_ARCH} {key}"] = r["launches"]
+        print(f"recsys {key} " + json.dumps(r), flush=True)
+        per = r.get("ms_per_batch", r.get("ms_per_query"))
+        rate = (f", {r['queries_per_s']:.0f} queries/s"
+                if "queries_per_s" in r else "")
+        print(f"{RECSYS_ARCH} {key} on {card}: batch {r['batch']}, "
+              f"{per:.3f} ms (median of {RECSYS_TIMED_CALLS}, warm){rate}",
+              flush=True)
+    del model
+    torch.cuda.empty_cache()
+    reset_kernel_launches(bi, fd)
+    tr = drive_recsys_train(build_bundle, dev)
+    tr["launches"] = kernel_launch_counts(bi, fd)
+    require_no_launches(f"{RECSYS_ARCH} train_batch", tr["launches"])
+    res["train_batch"] = tr
+    res["launches"][f"{RECSYS_ARCH} train_batch"] = tr["launches"]
+    print("recsys train_batch " + json.dumps(tr), flush=True)
+    print(f"{RECSYS_ARCH} train_batch on {card}: batch {tr['batch']} (cut "
+          f"from {tr['batch_cut_from']}), batch_chunk {tr['batch_chunk']}, "
+          f"{tr['ms_per_step']:.1f} ms a step (median of {RECSYS_STEPS}), "
+          f"{tr['masked_items_per_s']:.0f} masked items/s, "
+          f"{100 * tr['f32_peak_share']:.2f} % of the float32 peak "
+          f"({F32_PEAK_FLOPS / 1e12:.0f} TFLOP/s, NVIDIA data sheet), "
+          f"peak memory {tr['peak_bytes']:,} B", flush=True)
+    torch.cuda.empty_cache()
+
+    res["gnn"] = {}
+    for arch in GNN_ARCHS:
+        ta = time.perf_counter()
+        gb = build_bundle(arch, device=dev)
+        out = {"reduced": {}}
+        for shape in GNN_TRAIN_SHAPES:
+            out["reduced"][shape] = check_gnn_reduced(build_bundle, arch,
+                                                      shape, dev)
+        print(f"reduced {arch} on the card against the CPU, float32: "
+              + json.dumps(out["reduced"]), flush=True)
+        reck = reckon_sampled(gb)
+        out["minibatch_lg_reckoning"] = reck
+        seeds = reck["seeds"]
+        print(f"{arch} {GNN_SAMPLED_SHAPE}: reckoned {reck['bytes']:,} B "
+              f"uncut (budget {GNN_BYTES_BUDGET:,.0f} B)"
+              + (f", {reck['cut_bytes']:,} B at {seeds} of "
+                 f"{reck['seeds_cut_from']} seeds" if seeds else ""),
+              flush=True)
+        for shape in GNN_TRAIN_SHAPES + (GNN_SAMPLED_SHAPE,):
+            r = drive_gnn_train(gb, shape, dev, bi, fd,
+                                batch=seeds if shape == GNN_SAMPLED_SHAPE
+                                else None)
+            out[shape] = r
+            res["launches"][f"{arch} {shape}"] = r["launches"]
+            print(f"gnn {arch} {shape} " + json.dumps(r), flush=True)
+            print(f"{arch} {shape} on {card}: {r['nodes']:,} nodes, "
+                  f"{r['edges']:,} edges"
+                  + (f", {r['triplets']:,} triplets" if r["triplets"]
+                     else "")
+                  + (f" ({r['batch']} seeds)" if r["batch"] else "")
+                  + f", {r['ms_per_step']:.1f} ms a step (median of "
+                  f"{GNN_STEPS}), {100 * r['f32_peak_share']:.2f} % of the "
+                  f"float32 peak ({F32_PEAK_FLOPS / 1e12:.0f} TFLOP/s, "
+                  f"NVIDIA data sheet) by model_flops, peak memory "
+                  f"{r['peak_bytes']:,} B (reckoned "
+                  f"{r['reckoned_bytes']:,} B)", flush=True)
+            torch.cuda.empty_cache()
+        out["seconds"] = time.perf_counter() - ta
+        res["gnn"][arch] = out
+        print(f"phase 5d {arch} in {out['seconds']:.3f} s", flush=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"phase 5d in {res['seconds']:.3f} s", flush=True)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3295,6 +3859,13 @@ def main() -> int:
             fdk["max_abs_err"] = max(fdk["max_abs_err"],
                                      d["attention_held"]["max_abs_err"],
                                      d["flash_decode"]["max_abs_err"])
+
+    # phase 5d last: bert4rec and the GNNs, which launch none of the three
+    # kernels; each row records the 0 launches of each of its paths
+    rec = run_phase_5d(dev, card)
+    for k in kernels:
+        k["launches_phase_5d"] = {path: counts[k["name"]]
+                                  for path, counts in rec["launches"].items()}
 
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.3f} s",
           flush=True)

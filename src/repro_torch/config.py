@@ -1,23 +1,25 @@
-"""The LM configuration dataclass and the LM shape registry of the port.
+"""Config dataclasses of the three model families and their shape
+registries.
 
-A copy of `LM_SHAPES` and of `LMConfig` from the JAX package's
-`config.py` (pure dataclasses; the port imports nothing of that package).
-`LMConfig` keeps the fields that the decode, prefill and train paths and
-`n_params` read, with the reference's defaults, the MoE dispatch knobs
-(`moe_group`, the dispatch group of prefill and training; `moe_pad_to`,
-dead expert slots) among them; `seq_parallel` and `unroll` come with the
-slices that use them (ROADMAP.md Queue 1). Every
-architecture the port serves has a module in `repro_torch/configs/` with
-`config()` (the published hyperparameters) and `reduced()` (a tiny
-same-family config for CPU tests); `configs/registry.py` resolves
-`--arch`.
+Copies of the JAX package's `config.py` (pure dataclasses; the port
+imports nothing of that package): `GNNConfig`, `RecsysConfig`,
+`GNN_SHAPES` and `RECSYS_SHAPES` exactly, and `LMConfig` with the fields
+that the decode, prefill and train paths and `n_params` read, with the
+reference's defaults, the MoE dispatch knobs (`moe_group`, the dispatch
+group of prefill and training; `moe_pad_to`, dead expert slots) among
+them; `seq_parallel` and `unroll` come with the slices that use them
+(ROADMAP.md Queue 1). Every architecture has a module in
+`repro_torch/configs/` with `config()` (the published hyperparameters)
+and `reduced()` (a tiny same-family config for CPU tests);
+`configs/registry.py` resolves `--arch`.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
-__all__ = ["LMConfig", "LM_SHAPES"]
+__all__ = ["LMConfig", "GNNConfig", "RecsysConfig", "LM_SHAPES", "GNN_SHAPES",
+           "RECSYS_SHAPES"]
 
 
 @dataclasses.dataclass
@@ -51,6 +53,7 @@ class LMConfig:
     qk_nope_head_dim: int = 0
     qk_rope_head_dim: int = 0
     v_head_dim: int = 0
+    family: str = "lm"
 
     def n_params(self) -> int:
         """Total parameter count (for 6·N·D roofline bookkeeping)."""
@@ -83,10 +86,55 @@ class LMConfig:
         return dense_total + L * self.moe_top_k * 3 * d * f
 
 
-# (shape_id → spec)
+@dataclasses.dataclass
+class GNNConfig:
+    name: str
+    model: str                        # gatedgcn | nequip | equiformer_v2 | dimenet
+    n_layers: int
+    d_hidden: int
+    extra: dict = dataclasses.field(default_factory=dict)
+    family: str = "gnn"
+
+
+@dataclasses.dataclass
+class RecsysConfig:
+    name: str
+    embed_dim: int
+    n_blocks: int
+    n_heads: int
+    seq_len: int
+    n_items: int
+    unroll: bool = False
+    q_chunk: int = 128
+    k_chunk: int = 256
+    batch_chunk: int = 256           # cloze CE batch chunking
+    family: str = "recsys"
+
+
+# (shape_id → spec) per family
 LM_SHAPES: dict[str, dict[str, Any]] = {
     "train_4k":    {"kind": "train",   "seq_len": 4096,    "global_batch": 256},
     "prefill_32k": {"kind": "prefill", "seq_len": 32_768,  "global_batch": 32},
     "decode_32k":  {"kind": "decode",  "seq_len": 32_768,  "global_batch": 128},
     "long_500k":   {"kind": "decode",  "seq_len": 524_288, "global_batch": 1},
+}
+
+GNN_SHAPES: dict[str, dict[str, Any]] = {
+    "full_graph_sm": {"kind": "full",  "n_nodes": 2_708, "n_edges": 10_556,
+                      "d_feat": 1_433},
+    "minibatch_lg":  {"kind": "sampled", "n_nodes": 232_965,
+                      "n_edges": 114_615_892, "batch_nodes": 1_024,
+                      "fanout": (15, 10)},
+    "ogb_products":  {"kind": "full", "n_nodes": 2_449_029,
+                      "n_edges": 61_859_140, "d_feat": 100},
+    "molecule":      {"kind": "batched", "n_nodes": 30, "n_edges": 64,
+                      "batch": 128},
+}
+
+RECSYS_SHAPES: dict[str, dict[str, Any]] = {
+    "train_batch":    {"kind": "train", "batch": 65_536},
+    "serve_p99":      {"kind": "serve", "batch": 512},
+    "serve_bulk":     {"kind": "serve", "batch": 262_144},
+    "retrieval_cand": {"kind": "retrieval", "batch": 1,
+                       "n_candidates": 1_000_000},
 }

@@ -1,5 +1,6 @@
-"""Serving launcher of the port: batched greedy LM decode, and subgraph-match
-query serving through the `api` session layer and the `runtime` service.
+"""Serving launcher of the port: batched greedy LM decode, BERT4Rec
+scoring, and subgraph-match query serving through the `api` session layer
+and the `runtime` service.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --tokens 16 --batch 4                 # on the card
@@ -8,6 +9,8 @@ query serving through the `api` session layer and the `runtime` service.
       --device cpu          # any LM id of configs/registry.py: qwen2-1.5b,
                             # chatglm3-6b, minicpm3-4b, qwen3-moe-30b-a3b,
                             # granite-moe-3b-a800m
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch bert4rec \\
+      --shape serve_p99                     # top-10 items a history
   PYTHONPATH=src python -m repro_torch.launch.serve --arch match \\
       --dataset yeast --scale 0.05 --n-queries 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch match \\
@@ -15,6 +18,9 @@ query serving through the `api` session layer and the `runtime` service.
 
 `main` serves the reduced LM config, as the reference's launcher does;
 `decode_loop` serves any bundle, full width included (`chip_smoke.py`).
+`--arch bert4rec` scores one batch of `--shape` (serve_p99 unless given:
+the reduced config's 8 histories) through the bundle's serve step, as the
+reference's recsys branch does. The GNN ids only train.
 `--arch match` is a closed-loop batch: all queries exist up front and
 `match_many` drains them as one superbatch (`serve_match`). `--serve-loop`
 runs the always-on `MatchService` open loop instead (`serve_match_loop`):
@@ -32,7 +38,7 @@ import torch
 
 from repro_torch.models.api import ModelBundle, build_bundle
 
-__all__ = ["decode_loop", "serve_match", "serve_match_loop",
+__all__ = ["decode_loop", "serve_recsys", "serve_match", "serve_match_loop",
            "parse_args", "main"]
 
 
@@ -62,6 +68,22 @@ def decode_loop(bundle: ModelBundle, model, *, batch: int,
     return {"tokens": out, "seconds": dt,
             "tokens_per_s": tokens * batch / dt,
             "ms_per_step": dt / tokens * 1e3}
+
+
+def serve_recsys(bundle: ModelBundle, shape: str) -> dict:
+    """Score one batch of `shape`'s inputs (seed 0) through the bundle's
+    serve step, random weights from seed 0, and print the reference
+    launcher's line. Returns the top-k values and indices and the wall
+    seconds."""
+    model = bundle.init_fn(0)
+    batch = bundle.make_inputs(shape)
+    t0 = time.perf_counter()
+    vals, idx = bundle.steps["serve"](model, batch)
+    vals, idx = vals.cpu(), idx.cpu()           # waits for the device
+    dt = time.perf_counter() - t0
+    print(f"scored batch {tuple(batch['ids'].shape)} → top10 "
+          f"{tuple(idx.shape)} on {bundle.device} in {dt * 1e3:.1f} ms")
+    return {"values": vals, "indices": idx, "seconds": dt}
 
 
 def serve_match(args) -> dict:
@@ -150,7 +172,11 @@ def parse_args(argv=None):
     """The launcher's arguments (`main`'s parser)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2-1.5b",
-                    help="an LM id of configs/registry.py, or match")
+                    help="an LM id of configs/registry.py, bert4rec, or "
+                         "match")
+    ap.add_argument("--shape", default=None,
+                    help="a RECSYS_SHAPES id for --arch bert4rec "
+                         "(default serve_p99)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--device", default=None,
@@ -187,6 +213,12 @@ def main(argv=None) -> int:
             serve_match(args)
         return 0
     bundle = build_bundle(args.arch, reduced=True, device=args.device)
+    if bundle.family == "recsys":
+        serve_recsys(bundle, args.shape or "serve_p99")
+        return 0
+    if bundle.family != "lm":
+        raise SystemExit(f"--arch {args.arch}: a {bundle.family} model only "
+                         "trains; serve takes an LM id, bert4rec or match")
     # weights stored in the activation dtype: the same numbers as the
     # reference's float32 weights cast at every use
     model = bundle.init_fn(0, dtype=torch.bfloat16)

@@ -20,6 +20,7 @@ import argparse
 import os
 import tempfile
 
+from repro_torch.configs.registry import get_config
 from repro_torch.train.trainer import TrainLoop
 
 __all__ = ["parse_args", "main"]
@@ -46,6 +47,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    family = get_config(args.arch).family
+    if family != "lm":
+        raise SystemExit(f"--arch {args.arch}: a {family} model; this "
+                         "launcher trains the LM ids (its token stream is "
+                         "an LM's), as the reference's does")
     if (args.data_axis, args.model_axis) != (1, 1):
         raise NotImplementedError(
             f"--data-axis {args.data_axis} --model-axis {args.model_axis}: "

@@ -1,2 +1,3 @@
-"""Model bundles of the port (`api.build_bundle`) and the converter of
-reference parameters (`convert`)."""
+"""Model bundles of the port (`api.build_bundle`), BERT4Rec (`bert4rec`),
+the four GNNs (`gnn_models`) and the converters of reference parameters
+(`convert`)."""

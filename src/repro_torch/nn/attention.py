@@ -149,13 +149,14 @@ class GQA(nn.Module):
                 core.apply_rope(k, cos, sin, rot), v)
 
     def forward(self, x: torch.Tensor, *, q_chunk: int = 512,
-                k_chunk: int = 1024) -> torch.Tensor:
-        """Causal self-attention over the whole sequence (the reference's
-        `gqa_attention`): x (B, S, d_model) at positions 0..S-1 → y
+                k_chunk: int = 1024, causal: bool = True) -> torch.Tensor:
+        """Self-attention over the whole sequence (the reference's
+        `gqa_attention`; with `causal=False` the bidirectional attention of
+        its `encoder_forward`): x (B, S, d_model) at positions 0..S-1 → y
         (B, S, d_model)."""
         b, s, _ = x.shape
         q, k, v = self.qkv(x, torch.arange(s, device=x.device))
-        o = flash_attention(q, k, v, causal=True, q_chunk=q_chunk,
+        o = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
                             k_chunk=k_chunk)
         return core.dense(self.wo, o.reshape(b, s, self.n_heads
                                              * self.head_dim))

@@ -1,5 +1,6 @@
-"""NN primitives of the LM path: dense, RMSNorm, rotary, SwiGLU,
-embeddings, and their initialisers.
+"""NN primitives: dense, RMSNorm, LayerNorm, rotary, SwiGLU, the GELU
+MLP, embeddings and the embedding bag, the segment sum and max (the
+reference's `jax.ops.segment_*`), and their initialisers.
 
 Each layer is a small `nn.Module` whose parameters carry the JAX package's
 names (`w`, `b`, `g`, `table`, and a dense weight kept as (d_in, d_out)),
@@ -11,8 +12,12 @@ numerics:
 - `dense` casts the weight to x's dtype before the product;
 - `rmsnorm` normalises in float32, casts to x's dtype, and only then
   multiplies by `g` (not `torch.nn.functional.rms_norm`'s order);
+- `layernorm` normalises in float32 (biased variance, eps 1e-5), casts
+  to x's dtype, then scales by `g` and shifts by `b`;
 - `apply_rope` rotates interleaved pairs (dims 0::2 with 1::2) of the
-  first `rot` dims, with cos and sin cast to x's dtype first.
+  first `rot` dims, with cos and sin cast to x's dtype first;
+- `gelu` is the tanh approximation (`jax.nn.gelu(approximate=True)`),
+  not torch's default erf form.
 
 Initialisers draw from an explicit `torch.Generator`; they follow the
 reference's distributions, not its bits.
@@ -24,9 +29,10 @@ import math
 import torch
 from torch import nn
 
-__all__ = ["normal_init", "Dense", "dense", "RMSNorm", "rmsnorm",
-           "rope_angles", "apply_rope", "SwiGLU", "swiglu", "Embedding",
-           "embed"]
+__all__ = ["normal_init", "uniform_init", "Dense", "dense", "RMSNorm",
+           "rmsnorm", "LayerNorm", "layernorm", "rope_angles", "apply_rope",
+           "SwiGLU", "swiglu", "gelu", "MLP", "mlp", "Embedding", "embed",
+           "embedding_bag", "segment_sum", "segment_max"]
 
 
 # ----------------------------------------------------------------- init
@@ -35,6 +41,16 @@ def normal_init(gen: torch.Generator, shape, scale: float, *, device,
     """N(0, scale²) samples, drawn in float32 and cast to dtype."""
     x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
     return (x * scale).to(dtype)
+
+
+def uniform_init(gen: torch.Generator, shape, *, device,
+                 dtype=torch.float32) -> torch.Tensor:
+    """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) with fan_in = shape[0] (1 for a
+    vector), drawn in float32 and cast to dtype."""
+    fan_in = shape[0] if len(shape) > 1 else 1
+    bound = 1.0 / math.sqrt(max(fan_in, 1))
+    x = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+    return (x * (2 * bound) - bound).to(dtype)
 
 
 # ----------------------------------------------------------------- dense
@@ -69,6 +85,21 @@ def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p.g.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, *, device, dtype=torch.float32):
+        super().__init__()
+        self.g = nn.Parameter(torch.ones(d, device=device, dtype=dtype))
+        self.b = nn.Parameter(torch.zeros(d, device=device, dtype=dtype))
+
+
+def layernorm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * p.g.to(x.dtype) + p.b.to(x.dtype)
 
 
 # ----------------------------------------------------------------- rotary
@@ -127,6 +158,33 @@ def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     return dense(p.wo, g * torch.sigmoid(g) * dense(p.wi, x))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return nn.functional.gelu(x, approximate="tanh")
+
+
+class MLP(nn.Module):
+    """layers.<i> Dense(dims[i], dims[i + 1]), each with a bias unless
+    `bias=False`: the reference's `mlp_init`."""
+
+    def __init__(self, dims, *, bias: bool = True, gen: torch.Generator,
+                 device, dtype=torch.float32):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            Dense(dims[i], dims[i + 1], bias=bias, gen=gen, device=device,
+                  dtype=dtype) for i in range(len(dims) - 1))
+
+
+def mlp(p: MLP, x: torch.Tensor, act=gelu, final_act: bool = False):
+    """The dense layers in turn, `act` between them (and after the last with
+    `final_act`)."""
+    n = len(p.layers)
+    for i, lp in enumerate(p.layers):
+        x = dense(lp, x)
+        if i < n - 1 or final_act:
+            x = act(x)
+    return x
+
+
 # ----------------------------------------------------------------- embeddings
 class Embedding(nn.Module):
     """table (vocab, d) ~ N(0, 0.02²)."""
@@ -142,3 +200,46 @@ def embed(p: Embedding, ids: torch.Tensor, dtype) -> torch.Tensor:
     """Rows of the table in dtype (gathered, then cast: the same values as
     the reference's cast-then-gather)."""
     return p.table[ids.long()].to(dtype)
+
+
+def segment_sum(values: torch.Tensor, ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """out[ids[e]] += values[e] over the first axis (`jax.ops.segment_sum`);
+    0 for an empty segment."""
+    out = values.new_zeros((num_segments,) + values.shape[1:])
+    return out.index_add(0, ids.long(), values)
+
+
+def segment_max(values: torch.Tensor, ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """The largest values[e] of each segment over the first axis, -inf for
+    an empty segment (`jax.ops.segment_max`; a torch `scatter_reduce("amax",
+    include_self=False)` would keep the initial value, so it starts from
+    -inf)."""
+    out = values.new_full((num_segments,) + values.shape[1:], -torch.inf)
+    idx = ids.long().reshape((-1,) + (1,) * (values.dim() - 1))
+    return out.scatter_reduce(0, idx.expand_as(values), values, "amax",
+                              include_self=False)
+
+
+def embedding_bag(p: Embedding, ids: torch.Tensor, segment_ids: torch.Tensor,
+                  num_segments: int, *, mode: str = "sum",
+                  weights: torch.Tensor | None = None,
+                  dtype=None) -> torch.Tensor:
+    """Gather + segment reduce: ids and segment_ids (nnz,) are flat
+    multi-hot indices and their bag ids; mode "sum", "mean" (over a bag's
+    count, at least 1) or "max" (-inf for an empty bag). Returns
+    (num_segments, d)."""
+    vecs = p.table[ids.long()]
+    if dtype is not None:
+        vecs = vecs.to(dtype)
+    if weights is not None:
+        vecs = vecs * weights[:, None].to(vecs.dtype)
+    if mode == "max":
+        return segment_max(vecs, segment_ids, num_segments)
+    out = segment_sum(vecs, segment_ids, num_segments)
+    if mode == "mean":
+        cnt = segment_sum(torch.ones_like(segment_ids, dtype=vecs.dtype),
+                          segment_ids, num_segments)
+        out = out / torch.clamp(cnt, min=1)[:, None]
+    return out

@@ -2,7 +2,8 @@
 reference scans over stacked layer parameters), GQA (with partial rotary)
 or MLA attention, a SwiGLU or MoE FFN, and the LM head (tied to the
 embedding, or a `head` Dense); the forward pass, the chunked next-token
-loss (+ 0.01 · the MoE aux loss), prefill logits and the decode step.
+loss (+ 0.01 · the MoE aux loss), prefill logits and the decode step; and
+the bidirectional encoder of the same stack (`encoder_forward`, BERT4Rec).
 
     model = lm_init(cfg, seed=0, device="cpu")
     loss, metrics = lm_loss(model, tokens)        # differentiable
@@ -33,7 +34,8 @@ from . import core
 from .moe import MoE, moe_ffn
 
 __all__ = ["Block", "LM", "lm_init", "lm_forward", "lm_loss",
-           "lm_prefill_logits", "lm_init_caches", "lm_decode_step"]
+           "lm_prefill_logits", "lm_init_caches", "lm_decode_step",
+           "encoder_forward"]
 
 
 class Block(nn.Module):
@@ -211,3 +213,20 @@ def lm_decode_step(model: LM, token: torch.Tensor, caches: dict,
         x = x + _ffn(blk, cfg, y)[0]
     h = core.rmsnorm(model.ln_f, x)
     return _logits(model, h)[:, 0], caches
+
+
+def encoder_forward(model: LM, ids: torch.Tensor, *,
+                    dtype=torch.float32) -> torch.Tensor:
+    """The non-causal encoder (BERT4Rec): the same blocks with
+    bidirectional GQA attention (`flash_attention(causal=False)`) and a
+    SwiGLU FFN, no checkpointing (the reference's encoder has none); ids
+    (B, S) → hidden (B, S, d_model) in `dtype` after the final RMSNorm."""
+    cfg = model.cfg
+    x = core.embed(model.embed, ids, dtype=dtype)
+    for blk in model.blocks:
+        y = core.rmsnorm(blk.ln1, x)
+        x = x + blk.attn(y, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
+                         causal=False)
+        y = core.rmsnorm(blk.ln2, x)
+        x = x + core.swiglu(blk.ffn, y)
+    return core.rmsnorm(model.ln_f, x)

@@ -85,22 +85,23 @@ def test_config_is_the_reference_config(reduced):
 
 
 def test_unported_arch_and_blocks_name_the_roadmap():
-    """The registry holds the reference's five LM ids, with its order and
-    shapes; its GNN and recsys ids, and context-parallel attention
-    (cp_degree > 0), still raise and name ROADMAP.md."""
+    """The registry holds the reference's ten ids (its five LM ids among
+    them), with its order and shapes; an unknown id raises the reference's
+    KeyError; context-parallel attention (cp_degree > 0) still raises and
+    names ROADMAP.md."""
     lm_ids = [a for a in jregistry.arch_ids()
               if jregistry.get_config(a).family == "lm"]
-    assert list(registry.ARCHS) == registry.arch_ids() == lm_ids
+    assert list(registry.ARCHS) == registry.arch_ids() \
+        == jregistry.arch_ids()
     assert len(lm_ids) == 5
     for arch in lm_ids:
         assert registry.shapes_for(arch) == jregistry.shapes_for(arch)
         for reduced in (False, True):
             assert registry.get_config(arch, reduced=reduced).name \
                 == jregistry.get_config(arch, reduced=reduced).name
-    for arch in ("gatedgcn", "bert4rec"):
-        for call in (registry.get_config, registry.shapes_for):
-            with pytest.raises(KeyError, match="ROADMAP"):
-                call(arch)
+    for call in (registry.get_config, registry.shapes_for):
+        with pytest.raises(KeyError, match="unknown arch 'llama-9'"):
+            call("llama-9")
     cfg = registry.get_config(ARCH, reduced=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.lm_init(dataclasses.replace(cfg, cp_degree=2), device="cpu")

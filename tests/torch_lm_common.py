@@ -1,7 +1,8 @@
-"""Helpers shared by the LM tests of the port: the reference's reduced
-weights of an architecture (qwen2-1.5b unless named) with seeded noise on
-the biases and gains, the port's model on the same weights, and
-conversions to numpy."""
+"""Helpers shared by the model tests of the port: the reference's reduced
+weights of an LM architecture (qwen2-1.5b unless named) with seeded noise
+on the biases and gains (`perturb_tree` for any reference tree), the
+port's model on the same weights, and conversions to numpy (`flat_np`:
+a reference tree as the port's dotted parameter names)."""
 import numpy as np
 import torch
 
@@ -23,16 +24,14 @@ def to_np(x):
         else np.asarray(x).astype(np.float32)
 
 
-def perturbed_params(seed=0, arch=ARCH):
-    """The reference's init of `arch`'s reduced config with its zero biases
-    and all-ones norm gains replaced by seeded noise, so a wrong mapping of
+def perturb_tree(tree, seed=0):
+    """`tree` (a reference init) as numpy, with its zero biases ("b") and
+    all-ones gains ("g") replaced by seeded noise, so a wrong mapping of
     any leaf shows."""
-    params = jax_build_bundle(arch, reduced=True).init_fn(
-        jax.random.PRNGKey(seed))
     rng = np.random.default_rng(seed + 1)
 
     def perturb(path, leaf):
-        name = path[-1].key
+        name = getattr(path[-1], "key", None)
         a = np.asarray(leaf)
         if name == "b":
             a = a + 0.1 * rng.standard_normal(a.shape).astype(np.float32)
@@ -40,7 +39,25 @@ def perturbed_params(seed=0, arch=ARCH):
             a = a + 0.2 * rng.standard_normal(a.shape).astype(np.float32)
         return a
 
-    return jax.tree_util.tree_map_with_path(perturb, params)
+    return jax.tree_util.tree_map_with_path(perturb, tree)
+
+
+def perturbed_params(seed=0, arch=ARCH):
+    """The reference's init of `arch`'s reduced config, perturbed
+    (`perturb_tree`)."""
+    return perturb_tree(jax_build_bundle(arch, reduced=True).init_fn(
+        jax.random.PRNGKey(seed)), seed)
+
+
+def flat_np(tree) -> dict:
+    """A reference tree (or gradient tree) as {dotted path: numpy array},
+    list i as `<i>`: the port's parameter names."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        name = ".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                        for k in path)
+        out[name] = np.asarray(leaf)
+    return out
 
 
 def port_model(tree, cfg=None):
