@@ -12,8 +12,9 @@ shape (B = 32, H = 12, Hkv = 2, D = 128, S = 32,772, lengths from
 dtype pairs, each held against the plain version on the same inputs
 within chip_smoke.FD_TOL. Prints the card, then one JSON line per SRC and
 dtype pair: the kernel's time, the plain version's, the bound (the cache
-bytes the lengths cover over the HBM rate) and its share. Needs CUDA;
-exits non-zero without it.
+bytes the lengths cover over the HBM rate: the SRC's own
+`launch/roofline.HW`, or this checkout's for a SRC from before that
+module) and its share. Needs CUDA; exits non-zero without it.
 """
 from __future__ import annotations
 
@@ -30,10 +31,15 @@ SHAPE = dict(b=32, h=12, hkv=2, s=32_768 + 4, d=128)
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def time_one(src: str) -> None:
+def time_one(src: str, hbm_bw: float) -> None:
     """Times this SRC's flash_decode in each dtype pair; one JSON line
-    each."""
+    each. `hbm_bw` (bytes/s) serves a SRC that has no roofline module."""
     sys.path.insert(0, str(Path(src).resolve()))
+    try:
+        from repro_torch.launch.roofline import HW
+        hbm_bw = HW["hbm_bw"]
+    except ModuleNotFoundError:
+        pass
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ref
     from repro_torch.models.api import build_bundle
@@ -57,7 +63,7 @@ def time_one(src: str) -> None:
                 lambda: ref.flash_decode_ref(q, k, v, lens))
             nbytes = (total_len * hkv * d * 2 * k.element_size()
                       + 2 * q.numel() * q.element_size() + lens.numel() * 4)
-            bound_ms = nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3
+            bound_ms = nbytes / hbm_bw * 1e3
             route = fd.route(q, k, v) if hasattr(fd, "route") else None
             print(json.dumps({
                 "src": src, "q": q_name, "cache": kv_name, "route": route,
@@ -71,15 +77,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_fd_compare: no CUDA device", file=sys.stderr)
         return 2
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        time_one(sys.argv[2])
+    if len(sys.argv) == 4 and sys.argv[1] == "--one":
+        time_one(sys.argv[2], float(sys.argv[3]))
         return 0
     if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
     print(f"card: {chip_smoke.card_line()}", flush=True)
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    hbm_bw = chip_smoke.hw()["hbm_bw"]
     for src in sys.argv[1:]:
-        proc = subprocess.run([sys.executable, __file__, "--one", src])
+        proc = subprocess.run([sys.executable, __file__, "--one", src,
+                               repr(hbm_bw)])
         if proc.returncode != 0:
             return proc.returncode
     return 0

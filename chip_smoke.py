@@ -156,6 +156,34 @@ Phases, in order; any failure exits non-zero:
               within LM_32K_F32_ATOL, and the bfloat16 step with the kernel
               is no farther from the float32 step than LM_32K_BF16_RATIO
               times the plain bfloat16 step is; peak device memory;
+  5a. long context — after phase 6's timing, once the decode_32k cache is
+              freed, on the same bfloat16 qwen2-1.5b (`run_long_500k`;
+              `run_long_alone()` runs it by itself): 3 `long_500k` steps
+              uncut (batch 1, a seeded bfloat16 cache of 524,288 + 4
+              positions, 15.0 GB; lengths set to 524,288, not drawn by
+              make_inputs), launch counts set to 0 just before and read
+              just after: 28 x 3 flash_decode launches, all "tensor_core",
+              each a split and a combine, no other kernel; logits finite;
+              one more step with each attention call held against the
+              plain version (decode_32k's check); ms a step beside
+              `hbm_floor_bytes` on a one-card `MeshShape` and the step's
+              share of `roofline_terms(...).bound_s` (FLOPs by
+              `count_flops` over the same step with the plain attention);
+              one layer's flash_decode beside its bound, the plain version
+              and SDPA (`time_fd_shape`), its split and combine timed apart
+              (profiler, and the combine alone through
+              `flash_decode_merge`). `sharded_decode_attention` on layer
+              0's cache over 1, 2 and 4 lanes of the card, counts set to 0
+              just before and read just after (a partials call a lane,
+              each a split and a combine, a merge a call), at the whole
+              context and at 1,000 (later lanes empty), held against
+              flash_decode and the plain version, no NaN; over distinct
+              cards where several are visible, else printed as not run.
+              flash_decode_partials (with an empty block, exactly
+              (0, -inf, 0)) and flash_decode_merge held against their
+              plain versions and timed at the 4-lane split. A 4,096-token
+              float32 prefill with cp_degree 4 against cp_degree 0: last
+              logits within LM_32K_F32_ATOL, cp_attention in every layer;
   5b. LM prefill and training — qwen2-1.5b's `steps["prefill"]` and
               `steps["train"]` (run after phase 6's timing, once the
               decode_32k cache is freed): the reduced model in float32
@@ -244,7 +272,7 @@ Phases, in order; any failure exits non-zero:
               `gnn_bytes` reckons it within GNN_BYTES_BUDGET, else with its
               seeds cut to the largest multiple of 128 that fits
               (equiformer-v2: 512 of 1,024); ms a step, peak memory, model_flops over the time as
-              a share of the float32 peak (F32_PEAK_FLOPS). Prints phase
+              a share of the float32 peak (hw()["flops_f32"]). Prints phase
               5d's wall; `run_phase_5d(dev, card)` runs it alone;
   6. timing — each kernel's median device time at its path's shapes beside
               its plain version's, its bound and, for flash_decode, the
@@ -258,9 +286,10 @@ Phases, in order; any failure exits non-zero:
               `torch.cuda._sleep(0)` kernel back to back, and alone after
               an L2 flush;
   7. summary — the kernels line, the card, one JSON line of per-kernel
-              numbers (flash_decode's with phase 5c's launches and its
-              times at phase 5c's shapes; each row with phase 5d's 0
-              launches by path), and last the line
+              numbers (flash_decode's with phase 5a's and 5c's launches
+              and its times at their shapes; flash_decode_partials' and
+              flash_decode_merge's from phase 5a's sharded check; each row
+              with phase 5d's 0 launches by path), and last the line
               {"ok": true, "device": {"platform": "gpu", ...}}.
 
 It imports nothing of jax or of the JAX package `repro`.
@@ -280,8 +309,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
-FP32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 TILE_ROWS = 256                  # MatchOptions.tile_rows default
 LIMIT = 1_000_000                # MatchOptions.limit default
 HUMAN_SIZE8_COUNT = 40_860       # ref-engine count of human size-8, seed 7
@@ -537,6 +564,27 @@ DECODE_STEPS = 3
 # its sum fails; `fd_agrees` also fails when a zero row would pass.
 FD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-4, 8e-3)}
 FD_DTYPES = (torch.float32, torch.bfloat16)
+# The long-context phase: qwen2-1.5b's long_500k cell uncut (batch 1, a
+# bfloat16 cache of 524,288 + LONG_STEPS + 1 positions, 15.0 GB). Lengths
+# start at 524,288, set rather than drawn by make_inputs (which draws them
+# in [1, S - 2]), so every step reads the cell's whole context.
+LONG_SHAPE = "long_500k"
+LONG_STEPS = 3
+# sharded_decode_attention on layer 0's cache over this many lanes of the
+# card, at the whole context and at LONG_SHORT_LENGTH, a length inside the
+# first lane's block (the later lanes' blocks are empty)
+LONG_LANES = (1, 2, 4)
+LONG_SHORT_LENGTH = 1_000
+# cp_attention: a prefill of this many tokens with cp_degree 4 against
+# cp_degree 0 (flash_attention), float32 activations, last logits held at
+# LM_32K_F32_ATOL (two exact softmaxes, float32 sums in another order, 28
+# layers deep)
+LONG_CP_TOKENS, LONG_CP_DEGREE = 4096, 4
+# flash_decode_partials against its plain version (float32 rows from the
+# same bfloat16 inputs, sums in another order over 131,073 positions; P
+# V on the tensor cores with P kept to ~16 bits): m absolute, acc and l
+# each relative to its largest magnitude
+PARTIALS_M_ATOL, PARTIALS_RTOL = 1e-4, 1e-4
 # LM logits in float32 activations: the reduced model on the card against
 # the CPU, and the full model's decode_32k step with the kernel against the
 # same step with the plain attention (fp32 sums in another order, 28
@@ -568,7 +616,6 @@ XCHECK_TOKENS, XCHECK_BATCH = 64, 2
 # a train step's loss and gnorm relative, its parameters absolute
 TRAIN_F32_RTOL, TRAIN_F32_PARAM_ATOL = 1e-5, 1e-5
 REPLAY_ATOL = 1e-4                # a replayed run against a fault-free one
-BF16_PEAK_FLOPS = 989e12          # H100 SXM dense bf16, NVIDIA data sheet
 # Phase 5c: the registry's other four LM architectures, bfloat16 weights
 # from seed 0. decode_32k's 128 rows are cut to what one card holds beside
 # the weights (a bfloat16 cache of 32,772 positions): 32 rows, granite's 8
@@ -628,7 +675,14 @@ GNN_SEED_STEP = 128
 # leaf whose true gradient is zero, as EquiformerV2's alpha MLP's last
 # bias, a shift of every score of a softmax, carries rounding noise only)
 GRAD_FLOOR = 1e-7
-F32_PEAK_FLOPS = 67e12     # H100 SXM float32 off the tensor cores, data sheet
+
+
+def hw() -> dict:
+    """The card's data-sheet peaks, the port's `launch/roofline.HW`
+    ("hbm_bw" in bytes/s, "flops_bf16", "flops_tf32", "flops_f32" in
+    FLOP/s, "nvlink_bw"); main() has put the checkout's src/ on the path."""
+    from repro_torch.launch.roofline import HW
+    return HW
 
 
 def card_line() -> str:
@@ -1954,7 +2008,7 @@ def time_lane(bi, ref, sb, dev) -> dict:
            "no_lane_ms": median_ms(nolane),
            "no_lane_flushed_ms": flushed_ms(nolane, flush),
            "plain_ms": median_ms(plain), "bytes": nbytes,
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "max_abs_err": err}
+           "bound_ms": nbytes / hw()["hbm_bw"] * 1e3, "max_abs_err": err}
     return out
 
 
@@ -2348,7 +2402,7 @@ def time_fd_shape(fd, ref, dev, k, v, lens, h: int, where: str) -> dict:
     nbytes = (total_len * hkv * d * 2 * k.element_size()
               + 2 * q.numel() * q.element_size() + lens.numel() * 4)
     flops = 4 * total_len * h * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / hw()["hbm_bw"], flops / hw()["flops_f32"]
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     bytes_per_s = nbytes / (ms / 1e3)
@@ -2394,6 +2448,437 @@ def time_flash_decode(fd, ref, dev, d32k, launches, errs) -> dict:
                        "attn_mask=length mask)",
             "library_max_abs_err": t["library_max_abs_err"],
             "shape": t["shape"]}
+
+
+def kernel_times_ms(fn, names, *, calls: int = 20) -> dict:
+    """Device time a call of the CUDA kernels that `fn` launches, by name:
+    {name: ms}, a kernel counted under each name its own name contains,
+    from torch.profiler's device times over `calls` warm calls. A name
+    that no kernel matched, or a trace with no device time, gives None."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names)
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        for name in names:
+            if name in ev.key and us:
+                out[name] = (out[name] or 0.0) + us / 1e3 / calls
+    return out
+
+
+def time_fd_parts(fd, dev, k, v, lens, h: int) -> dict:
+    """One flash_decode call at one layer's cache with its two device
+    kernels timed apart: the split and the combine from the profiler's
+    device times, and the combine alone with CUDA events through
+    `flash_decode_merge` (the same combine kernel, grid and chunk count)
+    over a workspace-shaped input."""
+    b, s, hkv, d = k.shape
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    chunk, n_chunks, _ = fd.split_plan(b, h, hkv, s, d)
+    by_kernel = kernel_times_ms(lambda: fd.flash_decode(q, k, v, lens),
+                                ("split_", "combine_kernel"))
+    ws = torch.randn((b, h, n_chunks, d + 2), generator=gen, device=dev)
+    ws[..., -1].abs_()
+    combine_ms = median_ms(lambda: fd.flash_decode_merge(ws, q.dtype))
+    return {"split_ms": by_kernel["split_"],
+            "combine_ms": by_kernel["combine_kernel"],
+            "combine_events_ms": combine_ms, "chunk": chunk,
+            "n_chunks": n_chunks, "combine_ctas": b * h}
+
+
+def partials_agree(got, want, where: str) -> float:
+    """flash_decode_partials' rows against the plain version's: the same
+    empty rows, each exactly (0, -inf, 0); elsewhere m within
+    PARTIALS_M_ATOL, and acc and l each within PARTIALS_RTOL of its
+    largest magnitude. Returns the largest absolute difference over the
+    non-empty rows; raises SystemExit otherwise."""
+    empty = torch.isinf(want[..., -2])
+    if not torch.equal(torch.isinf(got[..., -2]), empty) \
+            or not torch.equal(got[empty], want[empty]):
+        raise SystemExit(f"flash_decode_partials: {where}: empty rows "
+                         f"differ from the plain version's (0, -inf, 0)")
+    if bool(empty.all()):
+        return 0.0
+    g, w = got[~empty], want[~empty]
+    m_err = float((g[:, -2] - w[:, -2]).abs().max())
+    rel = max(float((g[:, i] - w[:, i]).abs().max() / w[:, i].abs().max())
+              for i in (slice(0, -2), -1))
+    if not (bool(torch.isfinite(g).all()) and m_err <= PARTIALS_M_ATOL
+            and rel <= PARTIALS_RTOL):
+        raise SystemExit(f"flash_decode_partials disagrees: {where}: m "
+                         f"{m_err:.3g}, acc and l relative {rel:.3g}")
+    return float((g - w).abs().max())
+
+
+def check_long_sharded(fd, cp, mesh_mod, ref, dev, k, v, h: int,
+                       seq: int) -> dict:
+    """sharded_decode_attention on one layer's long_500k cache over
+    LONG_LANES lanes of the card at two lengths, the cell's whole context
+    `seq` and LONG_SHORT_LENGTH (inside the first lane's block, so the
+    later lanes' blocks are empty), each held against flash_decode on the
+    whole cache and against the plain version, with the launch counts set
+    to 0 just before and read just after; then over distinct cards where
+    more than one is visible."""
+    b, s, hkv, d = k.shape
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    cases = {"whole": seq, "short": LONG_SHORT_LENGTH}
+    lens = {name: torch.full((b,), n, dtype=torch.int32, device=dev)
+            for name, n in cases.items()}
+    want = {name: fd.flash_decode(q, k, v, L) for name, L in lens.items()}
+    plain = {name: ref.flash_decode_ref(q, k, v, L)
+             for name, L in lens.items()}
+    torch.cuda.synchronize()
+    fd.reset_launches()
+    got = {(n, name): cp.sharded_decode_attention(
+        q, k, v, L, mesh_mod.EnumMesh((dev,) * n))
+        for n in LONG_LANES for name, L in lens.items()}
+    torch.cuda.synchronize()
+    launches = {
+        "flash_decode_partials": {
+            "calls": fd.flash_decode_partials.launches,
+            "by_route": dict(fd.flash_decode_partials.launches_by_route),
+            "by_kernel": dict(fd.flash_decode_partials.launches_by_kernel)},
+        "flash_decode_merge": {
+            "calls": fd.flash_decode_merge.launches,
+            "by_kernel": dict(fd.flash_decode_merge.launches_by_kernel)}}
+    n_part = sum(LONG_LANES) * len(cases)
+    n_merge = len(LONG_LANES) * len(cases)
+    if launches["flash_decode_partials"] != {
+            "calls": n_part, "by_route": {"tensor_core": n_part,
+                                          "cuda_core": 0},
+            "by_kernel": {"split": n_part, "combine": n_part}} \
+            or launches["flash_decode_merge"] != {
+                "calls": n_merge,
+                "by_kernel": {"split": 0, "combine": n_merge}}:
+        raise SystemExit(f"sharded long_500k launches {launches}, expected "
+                         f"{n_part} partials (each a split and a combine, "
+                         f"tensor_core) and {n_merge} merges")
+    errs = {}
+    for (n, name), out in got.items():
+        where = f"sharded over {n} lane(s) at length {cases[name]}"
+        errs[f"{n} lanes {name}"] = max(
+            fd_agrees(out, want[name], where + " vs flash_decode"),
+            fd_agrees(out, plain[name], where + " vs the plain version"))
+    cards = torch.cuda.device_count()
+    distinct = {}
+    for n in LONG_LANES:
+        if n < 2 or n > cards:
+            continue
+        devs = [torch.device("cuda", i) for i in range(n)]
+        spans = cp.lane_blocks(s, n)
+        kb = [k[:, o:o + m].to(dv) for (o, m), dv in zip(spans, devs)]
+        vb = [v[:, o:o + m].to(dv) for (o, m), dv in zip(spans, devs)]
+        for name, L in lens.items():
+            out = cp.sharded_decode_attention(q, kb, vb, L,
+                                              mesh_mod.EnumMesh(devs))
+            distinct[f"{n} cards {name}"] = fd_agrees(
+                out, want[name], f"sharded over {n} cards at length "
+                f"{cases[name]}")
+        del kb, vb
+    if not distinct:
+        print(f"sharded long_500k over distinct cards: not run ({cards} "
+              f"card visible)", flush=True)
+    return {"lanes": list(LONG_LANES), "lengths": cases,
+            "max_abs_err": errs, "distinct_cards": distinct or None,
+            "launches": launches}
+
+
+def time_long_partials(fd, cp, ref, dev, k, v, h: int, seq: int,
+                       launches: dict) -> list:
+    """The kernels line's rows of flash_decode_partials and
+    flash_decode_merge at the sharded check's widest lane: the first
+    block of a LONG_LANES[-1]-lane split of one long_500k layer (every
+    position counted at the whole context) and the merge of that split's
+    rows into a bfloat16 output. Each held against its plain version on
+    the same inputs (with an empty block, whose row must be exactly
+    (0, -inf, 0)), then timed beside it; bounds from the bytes and
+    operations of these inputs."""
+    b, s, hkv, d = k.shape
+    lanes = LONG_LANES[-1]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    lens = torch.full((b,), seq, dtype=torch.int32, device=dev)
+    spans = cp.lane_blocks(s, lanes)
+    blocks = [(k[:, o:o + m], v[:, o:o + m], o) for o, m in spans]
+    parts = [fd.flash_decode_partials(q, kb, vb, lens, o)
+             for kb, vb, o in blocks]
+    err = max(partials_agree(
+        p, ref.flash_decode_partials_ref(q, kb, vb, lens, o),
+        f"lane {i} of {lanes} at length {seq}")
+        for i, (p, (kb, vb, o)) in enumerate(zip(parts, blocks)))
+    short = torch.full((b,), LONG_SHORT_LENGTH, dtype=torch.int32,
+                       device=dev)
+    kb, vb, o = blocks[1]
+    partials_agree(fd.flash_decode_partials(q, kb, vb, short, o),
+                   ref.flash_decode_partials_ref(q, kb, vb, short, o),
+                   f"an empty block at length {LONG_SHORT_LENGTH}")
+    kb, vb, o = blocks[0]
+    part_ms = median_ms(lambda: fd.flash_decode_partials(q, kb, vb, lens, o))
+    part_plain_ms = median_ms(
+        lambda: ref.flash_decode_partials_ref(q, kb, vb, lens, o))
+    n_pos = int((lens.long() - o).clamp(0, kb.shape[1]).sum())
+    nbytes = (n_pos * hkv * d * 2 * k.element_size()
+              + q.numel() * q.element_size() + lens.numel() * 4
+              + b * h * (d + 2) * 4)
+    flops = 4 * n_pos * h * d
+    t_bytes, t_ops = nbytes / hw()["hbm_bw"], flops / hw()["flops_f32"]
+    chunk, n_chunks, _ = fd.split_plan(b, h, hkv, kb.shape[1], d)
+    stacked = torch.stack(parts, dim=2).contiguous()
+    merged = fd.flash_decode_merge(stacked, torch.bfloat16)
+    merge_err = fd_agrees(merged, ref.flash_decode_merge_ref(
+        stacked, torch.bfloat16), f"merge of {lanes} lanes' rows")
+    merge_ms = median_ms(lambda: fd.flash_decode_merge(stacked,
+                                                       torch.bfloat16))
+    merge_plain_ms = median_ms(
+        lambda: ref.flash_decode_merge_ref(stacked, torch.bfloat16))
+    m_bytes = stacked.numel() * 4 + merged.numel() * merged.element_size()
+    m_flops = 2 * lanes * (d + 1) * b * h
+    m_bytes_s, m_ops_s = m_bytes / hw()["hbm_bw"], m_flops / hw()["flops_f32"]
+    common = {"route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+              "replaces": "src/repro/kernels/flash_decode.py:100",
+              "library_ms": None, "library": None}
+    rows = [
+        {"name": "flash_decode_partials", **common,
+         "launches": launches["flash_decode_partials"]["calls"],
+         "launches_by_path": {f"{LM_ARCH} {LONG_SHAPE} sharded":
+                              launches["flash_decode_partials"]},
+         "max_abs_err": err, "ms": part_ms, "plain_ms": part_plain_ms,
+         "bound_ms": max(t_bytes, t_ops) * 1e3,
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "bound_share": max(t_bytes, t_ops) * 1e3 / part_ms,
+         "kernel_route": fd.route(q, kb, vb), "chunk": chunk,
+         "n_chunks": n_chunks,
+         "shape": {"B": b, "H": h, "Hkv": hkv, "D": d, "S": kb.shape[1],
+                   "offset": o, "positions_counted": n_pos,
+                   "q": "bfloat16", "cache": "bfloat16"}},
+        {"name": "flash_decode_merge", **common,
+         "launches": launches["flash_decode_merge"]["calls"],
+         "launches_by_path": {f"{LM_ARCH} {LONG_SHAPE} sharded":
+                              launches["flash_decode_merge"]},
+         "max_abs_err": merge_err, "ms": merge_ms,
+         "plain_ms": merge_plain_ms,
+         "bound_ms": max(m_bytes_s, m_ops_s) * 1e3,
+         "bound_by": "bytes" if m_bytes_s >= m_ops_s else "operations",
+         "bound_share": max(m_bytes_s, m_ops_s) * 1e3 / merge_ms,
+         "shape": {"B": b, "H": h, "n": lanes, "D": d, "out": "bfloat16"}}]
+    for r in rows:
+        print(f"time {r['name']} ({LM_ARCH} {LONG_SHAPE}, {lanes} lanes): "
+              + json.dumps(r), flush=True)
+    return rows
+
+
+def check_long_cp(attn_mod, transformer, model, dev) -> dict:
+    """cp_attention at full width: a LONG_CP_TOKENS-token prefill at batch
+    1 with cp_degree LONG_CP_DEGREE against cp_degree 0 (flash_attention)
+    on the same model, float32 activations; the last logits within
+    LM_32K_F32_ATOL, cp_attention run in every layer."""
+    cfg = model.cfg
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (1, LONG_CP_TOKENS)).astype(np.int32)).to(dev)
+    calls = {"n": 0}
+    orig = attn_mod.cp_attention
+
+    def counted(*a, **kw):
+        calls["n"] += 1
+        return orig(*a, **kw)
+    logits, wall = {}, {}
+    attn_mod.cp_attention = counted
+    try:
+        for cp_degree in (0, LONG_CP_DEGREE):
+            model.cfg = dataclasses.replace(cfg, cp_degree=cp_degree)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits[cp_degree] = transformer.lm_prefill_logits(
+                model, tokens, dtype=torch.float32).float()
+            torch.cuda.synchronize()
+            wall[cp_degree] = time.perf_counter() - t0
+    finally:
+        model.cfg = cfg
+        attn_mod.cp_attention = orig
+    got, want = logits[LONG_CP_DEGREE], logits[0]
+    err = float((got - want).abs().max())
+    if calls["n"] != cfg.n_layers or not bool(torch.isfinite(got).all()) \
+            or not err <= LM_32K_F32_ATOL:
+        raise SystemExit(f"cp_attention prefill: {calls['n']} calls (want "
+                         f"{cfg.n_layers}), max_abs_err {err} against "
+                         f"cp_degree 0 (limit {LM_32K_F32_ATOL})")
+    return {"tokens": LONG_CP_TOKENS, "cp_degree": LONG_CP_DEGREE,
+            "cp_attention_calls": calls["n"], "logits_max_abs_err": err,
+            "logits_max_abs": float(want.abs().max()),
+            "greedy_agreement": bool(torch.equal(got.argmax(-1),
+                                                 want.argmax(-1))),
+            "wall_s": {"cp_degree_0": wall[0],
+                       f"cp_degree_{LONG_CP_DEGREE}": wall[LONG_CP_DEGREE]}}
+
+
+def run_long_500k(bi, fd, kops, ref, bundle, model, dev, card: str) -> dict:
+    """The long-context phase (after decode_32k's cache is freed, on the
+    same bfloat16 qwen2-1.5b): LONG_STEPS greedy long_500k steps at batch 1
+    over a seeded bfloat16 cache of 524,288 + LONG_STEPS + 1 positions,
+    lengths set to 524,288 (not drawn by make_inputs), the launch counts
+    set to 0 just before and read just after; one further step with each
+    attention call held against the plain version (`held_attention`, the
+    decode_32k check); the step's FLOPs (`count_flops` over the same step
+    with the plain attention), its HBM floor (`hbm_floor_bytes` on a
+    one-card MeshShape) and its share of the roofline bound; one layer's
+    flash_decode timed beside its bound and SDPA, split and combine apart;
+    sharded_decode_attention over lanes of the card; cp_attention in a
+    prefill."""
+    from repro_torch.config import LM_SHAPES
+    from repro_torch.distributed import context_parallel as cp
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.hbm_model import hbm_floor_bytes
+    from repro_torch.launch.roofline import count_flops, roofline_terms
+    from repro_torch.nn import attention as attn_mod
+    from repro_torch.nn import transformer
+    t_phase = time.perf_counter()
+    cfg = bundle.cfg
+    spec = LM_SHAPES[LONG_SHAPE]
+    seq, batch = spec["seq_len"], spec["global_batch"]
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    caches = bundle.init_caches(batch, seq + LONG_STEPS + 1,
+                                dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for t in caches.values():
+        t.normal_(generator=gen)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    token = bundle.make_inputs(LONG_SHAPE, seed=0, batch=batch)["token"]
+    lengths = torch.full((batch,), seq, dtype=torch.int32, device=dev)
+    step = bundle.steps["decode"]
+    torch.cuda.synchronize()
+    bi.reset_launches()
+    fd.reset_launches()
+    step_ms = []
+    for _ in range(LONG_STEPS):
+        t0 = time.perf_counter()
+        logits, caches = step(model, caches,
+                              {"token": token, "lengths": lengths})
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        lengths = lengths + 1
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {"calls": fd.flash_decode.launches,
+              "by_route": dict(fd.flash_decode.launches_by_route),
+              "by_kernel": dict(fd.flash_decode.launches_by_kernel)}
+    want = cfg.n_layers * LONG_STEPS
+    if counts != {"calls": want,
+                  "by_route": {"tensor_core": want, "cuda_core": 0},
+                  "by_kernel": {"split": want, "combine": want}} \
+            or fd.flash_decode_partials.launches \
+            or fd.flash_decode_merge.launches \
+            or sum(fn.launches for fn in bi.WRAPPERS):
+        raise SystemExit(f"long_500k launches {counts}, expected {want} "
+                         f"flash_decode calls on tensor_core, each a split "
+                         f"and a combine, and no other kernel")
+    if not bool(torch.isfinite(logits).all()):
+        raise SystemExit("long_500k logits are not finite")
+    held_batch = {"token": token, "lengths": lengths}
+    held = held_attention(kops, ref,
+                          lambda: step(model, caches, held_batch))
+    if held["calls"] != cfg.n_layers:
+        raise SystemExit(f"long_500k step held {held['calls']} attention "
+                         f"calls, expected {cfg.n_layers}")
+    print(f"{LONG_SHAPE} step: {held['calls']} flash_decode calls agree "
+          f"with the plain version on their own inputs, (q, cache) dtypes "
+          f"{held['dtypes']}, max_abs_err {held['max_abs_err']:.3g}",
+          flush=True)
+    # the same step once more with the plain attention, its operators
+    # counted (it rewrites the row the held step wrote, at that position)
+    _, flops = count_flops(lambda: step(model, caches, held_batch,
+                                        use_kernel=False))
+    floor = hbm_floor_bytes(bundle, LONG_SHAPE,
+                            mesh_mod.MeshShape(("data", "model"), (1, 1)))
+    terms = roofline_terms(flops, floor, 1)
+    ms = float(np.median(step_ms))
+    share = terms.bound_s * 1e3 / ms
+    attended = lengths + 1          # the held step's attention lengths
+    print(f"{LM_ARCH} {LONG_SHAPE} on {card}: batch {batch}, cache "
+          f"{seq + LONG_STEPS + 1:,} positions ({caches['k'].numel() * 4:,} "
+          f"B of bfloat16 K and V, filled in {fill_s:.3f} s), ms a step "
+          + ", ".join(f"{t:.3f}" for t in step_ms) + f" (median {ms:.3f}); "
+          f"hbm_floor_bytes {floor:,.0f} B on one card, step FLOPs "
+          f"{flops:,}, roofline bound {terms.bound_s * 1e3:.4f} ms "
+          f"({terms.dominant}), the step at {share:.4f} of its bound",
+          flush=True)
+    k0, v0 = caches["k"][0], caches["v"][0]
+    layer = time_fd_shape(fd, ref, dev, k0, v0, attended, cfg.n_heads,
+                          f"{LM_ARCH} {LONG_SHAPE}")
+    layer.update(time_fd_parts(fd, dev, k0, v0, attended, cfg.n_heads))
+    print(f"time flash_decode ({LM_ARCH} {LONG_SHAPE}) kernels apart: split "
+          f"{layer['split_ms']} ms, combine {layer['combine_ms']} ms "
+          f"(profiler), combine alone {layer['combine_events_ms']:.6f} ms "
+          f"(CUDA events, {layer['n_chunks']} chunks over "
+          f"{layer['combine_ctas']} CTAs)", flush=True)
+    sharded = check_long_sharded(fd, cp, mesh_mod, ref, dev, k0, v0,
+                                 cfg.n_heads, seq)
+    print(f"sharded {LONG_SHAPE} on {card}: " + json.dumps(sharded),
+          flush=True)
+    rows = time_long_partials(fd, cp, ref, dev, k0, v0, cfg.n_heads, seq,
+                              sharded["launches"])
+    peak = peak_bytes(dev)
+    del caches, k0, v0
+    torch.cuda.empty_cache()
+    cp_res = check_long_cp(attn_mod, transformer, model, dev)
+    print(f"cp_attention prefill on {card}: " + json.dumps(cp_res),
+          flush=True)
+    res = {"batch": batch, "cache_positions": seq + LONG_STEPS + 1,
+           "steps": LONG_STEPS, "step_ms": step_ms, "ms_per_step": ms,
+           "tokens_per_s": batch / (ms / 1e3), "launches": counts,
+           "held_max_abs_err": held["max_abs_err"], "step_flops": flops,
+           "hbm_floor_bytes": floor, "roofline": terms.row(),
+           "bound_ms": terms.bound_s * 1e3, "bound_share": share,
+           "cache_fill_s": fill_s, "peak_bytes": peak, "layer": layer,
+           "sharded": sharded, "cp_attention": cp_res, "kernel_rows": rows,
+           "wall_s": time.perf_counter() - t_phase}
+    print(f"long-context phase on {card} in {res['wall_s']:.3f} s, peak "
+          f"memory {peak:,} B", flush=True)
+    return res
+
+
+def run_long_alone() -> dict:
+    """The long-context phase alone on the card, its library built first
+    (with its ptxas report) and held against the plain version over
+    phase 3's flash_decode grid:
+
+        python3 -c "import sys; sys.path.insert(0, 'src');
+                    import chip_smoke as c; c.run_long_alone()"
+
+    Prints the phase's lines and its kernels' JSON rows."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import bitmap_intersect as bi
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.api import build_bundle
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    for name, (lib, secs) in build_all(build, (fd.LIBRARY,)).items():
+        print(f"build: {lib.name} in {secs:.3f} s", flush=True)
+    for line in ptxas_report(build, fd.LIBRARY):
+        print(f"ptxas: {line}", flush=True)
+    dev = torch.device("cuda")
+    errs, n = check_flash_decode(fd, ref, dev)
+    print(f"flash_decode agrees with its plain version in {n} cases, "
+          f"max_abs_err by output dtype {errs}", flush=True)
+    bundle = build_bundle(LM_ARCH, device=dev)
+    model = bundle.init_fn(0, dtype=torch.bfloat16)
+    res = run_long_500k(bi, fd, kops, ref, bundle, model, dev, card)
+    print(json.dumps({"kernels": res["kernel_rows"]}), flush=True)
+    return res
 
 
 def flushed_ms(fn, flush, *, reps: int = 20) -> float:
@@ -2533,7 +3018,7 @@ def time_kernels(bi, ref, cq, dev, launches, errs, floors) -> list:
                    "host_us": host_us(kern),
                    "plain_host_us": host_us(plain),
                    "bytes": nbytes,
-                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "bound_ms": nbytes / hw()["hbm_bw"] * 1e3,
                    "max_abs_err": err}
             per[name][shape] = row
             print(f"time {name} at {shape}: " + json.dumps(row), flush=True)
@@ -2664,7 +3149,7 @@ def drive_prefill_32k(bundle, model, dev) -> dict:
     return {"batch": PREFILL_BATCH, "batch_cut_from": shape["global_batch"],
             "seq": s, "ms": ms, "tokens_per_s": tokens / (ms[-1] / 1e3),
             "model_flops": flops,
-            "bf16_peak_share": flops / (ms[-1] / 1e3) / BF16_PEAK_FLOPS,
+            "bf16_peak_share": flops / (ms[-1] / 1e3) / hw()["flops_bf16"],
             "causal_attention_flops": attn_flops,
             "peak_bytes": torch.cuda.max_memory_allocated(dev)}
 
@@ -2733,7 +3218,7 @@ def drive_train_4k(bundle, model, trainer, dev) -> dict:
             "seq": shape["seq_len"], "grad_accum": bundle.cfg.grad_accum,
             "losses": losses, "gnorms": gnorms, "ms": ms, "warm_ms": warm,
             "tokens_per_s": tokens / (warm / 1e3), "model_flops": flops,
-            "bf16_peak_share": flops / (warm / 1e3) / BF16_PEAK_FLOPS,
+            "bf16_peak_share": flops / (warm / 1e3) / hw()["flops_bf16"],
             "peak_bytes": torch.cuda.max_memory_allocated(dev)}
 
 
@@ -3051,7 +3536,7 @@ def drive_family_prefill(bundle, model, dev) -> dict:
     return {"batch": 1, "tokens": FAMILY_PREFILL_TOKENS, "ms": ms,
             "tokens_per_s": FAMILY_PREFILL_TOKENS / (ms[-1] / 1e3),
             "model_flops": flops,
-            "bf16_peak_share": flops / (ms[-1] / 1e3) / BF16_PEAK_FLOPS,
+            "bf16_peak_share": flops / (ms[-1] / 1e3) / hw()["flops_bf16"],
             "peak_bytes": torch.cuda.max_memory_allocated(dev)}
 
 
@@ -3120,8 +3605,7 @@ def run_phase_5c(dev, card: str) -> dict:
 
 def kernel_launch_counts(bi, fd) -> dict:
     """Each kernel of the kernels line: its launches since the last reset."""
-    return {**{fn.__name__: fn.launches for fn in bi.WRAPPERS},
-            "flash_decode": fd.flash_decode.launches}
+    return {fn.__name__: fn.launches for fn in (*bi.WRAPPERS, *fd.WRAPPERS)}
 
 
 def reset_kernel_launches(bi, fd) -> None:
@@ -3221,7 +3705,7 @@ def drive_recsys_serve(bundle, model, shape: str, dev, *, batch=None,
             "batch_cut_from": RECSYS_SHAPES[shape]["batch"], "ms": ms,
             "ms_per_batch": warm, "queries_per_s": b / (warm / 1e3),
             "model_flops": flops,
-            "f32_peak_share": flops / (warm / 1e3) / F32_PEAK_FLOPS,
+            "f32_peak_share": flops / (warm / 1e3) / hw()["flops_f32"],
             "scores_bytes": b * bundle.cfg.n_items * 4,
             "peak_bytes": peak, "held": held}
 
@@ -3291,7 +3775,7 @@ def drive_recsys_train(build_bundle, dev) -> dict:
             "masked_items": masked,
             "masked_items_per_s": masked / (warm / 1e3),
             "model_flops": flops,
-            "f32_peak_share": flops / (warm / 1e3) / F32_PEAK_FLOPS,
+            "f32_peak_share": flops / (warm / 1e3) / hw()["flops_f32"],
             "peak_bytes": peak}
 
 
@@ -3482,7 +3966,7 @@ def drive_gnn_train(bundle, shape: str, dev, bi, fd, *, batch=None) -> dict:
             "reckoned_bytes": gnn_bytes(bundle.cfg, n, e, t or 0),
             "make_inputs_s": make_s, "losses": losses, "ms": ms,
             "ms_per_step": warm, "model_flops": flops,
-            "f32_peak_share": flops / (warm / 1e3) / F32_PEAK_FLOPS,
+            "f32_peak_share": flops / (warm / 1e3) / hw()["flops_f32"],
             "parameters": sum(p.numel() for p in params.values()),
             "changed_leaves": changed, "peak_bytes": peak,
             "launches": counts}
@@ -3570,7 +4054,7 @@ def run_phase_5d(dev, card: str) -> dict:
           f"{tr['ms_per_step']:.1f} ms a step (median of {RECSYS_STEPS}), "
           f"{tr['masked_items_per_s']:.0f} masked items/s, "
           f"{100 * tr['f32_peak_share']:.2f} % of the float32 peak "
-          f"({F32_PEAK_FLOPS / 1e12:.0f} TFLOP/s, NVIDIA data sheet), "
+          f"({hw()['flops_f32'] / 1e12:.0f} TFLOP/s, NVIDIA data sheet), "
           f"peak memory {tr['peak_bytes']:,} B", flush=True)
     torch.cuda.empty_cache()
 
@@ -3606,7 +4090,7 @@ def run_phase_5d(dev, card: str) -> dict:
                   + (f" ({r['batch']} seeds)" if r["batch"] else "")
                   + f", {r['ms_per_step']:.1f} ms a step (median of "
                   f"{GNN_STEPS}), {100 * r['f32_peak_share']:.2f} % of the "
-                  f"float32 peak ({F32_PEAK_FLOPS / 1e12:.0f} TFLOP/s, "
+                  f"float32 peak ({hw()['flops_f32'] / 1e12:.0f} TFLOP/s, "
                   f"NVIDIA data sheet) by model_flops, peak memory "
                   f"{r['peak_bytes']:,} B (reckoned "
                   f"{r['reckoned_bytes']:,} B)", flush=True)
@@ -3838,14 +4322,32 @@ def main() -> int:
          "decode_32k step": d32k["vs_plain"]["attention_held"]
                             ["max_abs_err"]}))
 
-    # phase 5b after the timing, with the decode_32k cache freed
-    del d32k, model
+    # the long-context phase once the decode_32k cache is freed, on the
+    # same model; its flash_decode launches and layer timing go into
+    # flash_decode's row, its partials and merge rows into the line
+    del d32k
+    torch.cuda.empty_cache()
+    long_res = run_long_500k(bi, fd, kops, ref, bundle, model, dev, card)
+    fdk = next(k for k in kernels if k["name"] == "flash_decode")
+    fdk["launches_by_path"][LONG_SHAPE] = long_res["launches"]
+    fdk.setdefault("by_shape", {})[f"{LM_ARCH} {LONG_SHAPE}"] = \
+        long_res["layer"]
+    fdk["max_abs_err_by_case"][f"{LONG_SHAPE} step"] = \
+        long_res["held_max_abs_err"]
+    fdk["max_abs_err"] = max(fdk["max_abs_err"], long_res["held_max_abs_err"],
+                             long_res["layer"]["max_abs_err"])
+    kernels += long_res["kernel_rows"]
+    print("lm long_500k " + json.dumps(
+        {k: v for k, v in long_res.items() if k != "kernel_rows"}),
+        flush=True)
+
+    # phase 5b after the timing, with the model freed
+    del model
     torch.cuda.empty_cache()
     run_phase_5b(dev, card)
     # phase 5c once phase 5b's model is freed; its decode_32k launches and
     # timings go into flash_decode's row
     fam = run_phase_5c(dev, card)
-    fdk = next(k for k in kernels if k["name"] == "flash_decode")
     for arch, r in fam.items():
         d = r["decode_32k"]
         fdk["launches_by_path"][f"{arch} decode_32k"] = {

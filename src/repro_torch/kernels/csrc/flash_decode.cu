@@ -33,6 +33,19 @@
 //   (b, h) with the log-sum-exp rescale and writes out in q's dtype; all
 //   chunks empty gives 0/0 = NaN. With one chunk the CTA writes out
 //   itself.
+// * Partials of a cache block (context-parallel decode, the reference's
+//   src/repro/distributed/context_parallel.py `_local_partials` per shard
+//   and its pmax / psum combine). `cemr_flash_decode_partials` runs the
+//   same split kernels over positions [offset, offset + S) of a longer
+//   cache: k and v may be views along S (a batch stride, not S * Hkv * D,
+//   so no block is copied), and each CTA clamps lengths[b] - offset to the
+//   block itself, on the device. It always writes the workspace, and the
+//   combine kernel, in its partials mode, merges the block's chunks into
+//   one fp32 row (acc[D], m, l) per (b, h) instead of the output; a block
+//   wholly past lengths[b] gives the empty row (0, -inf, 0), not NaN.
+//   `cemr_flash_decode_merge` runs the combine kernel over n such rows per
+//   (b, h) into the output. Only these rows, (B, H, D + 2) fp32 a block,
+//   cross devices; no cache byte does.
 // * HBM kept busy. K and V tiles stream through a shared-memory ring with
 //   16-byte cp.async (a bf16 row of D = 128 is 16 lanes x 16 B); while one
 //   tile is computed the next ones are in flight (2 x 35 KB per CTA at
@@ -63,7 +76,8 @@
 //   aligned (odd D in bf16, say) takes synchronous loads into the ring:
 //   a dispatch on shape before launch.
 //
-// Contract: 1 <= lengths[b] <= S. A larger length is clamped to S; a row
+// Contract: 1 <= lengths[b] <= S (of a block: lengths[b] - offset may be
+// anything, clamped to [0, S]). A larger length is clamped to S; a row
 // with lengths[b] <= 0 attends to nothing and gives 0/0 = NaN, as the
 // plain version's softmax over an all-masked row does. q, k, v, out are
 // contiguous; D <= kMaxHeadDim; H is a multiple of Hkv.
@@ -75,6 +89,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -237,7 +253,7 @@ struct Cta {
 
 __device__ __forceinline__ Cta cta_coords(const int32_t* lengths,
                                           int n_heads, int n_kv, int seq,
-                                          int chunk) {
+                                          int chunk, int offset) {
   Cta t;
   const int group = n_heads / n_kv;
   const int n_hblk = (group + kHeads - 1) / kHeads;
@@ -247,7 +263,8 @@ __device__ __forceinline__ Cta cta_coords(const int32_t* lengths,
   t.b = blockIdx.z;
   t.h0 = t.kvh * group + hb * kHeads;
   t.gb = min(kHeads, group - hb * kHeads);
-  int len = lengths ? lengths[t.b] : seq;
+  // the block's own length: positions offset.. of the row's lengths[b]
+  int len = lengths ? lengths[t.b] - offset : seq;
   len = len < 0 ? 0 : (len > seq ? seq : len);
   t.start = t.c * chunk;
   t.end = min(t.start + chunk, len);
@@ -314,7 +331,8 @@ split_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v,
                  const int32_t* __restrict__ lengths, bf16* __restrict__ out,
                  float* __restrict__ ws, int n_heads, int n_kv, int seq,
-                 int head_dim, int chunk, int n_chunks, float scale) {
+                 int head_dim, int chunk, int n_chunks, float scale,
+                 long long batch_stride, int offset) {
   using L = MmaLayout<DPAD>;
   constexpr int TP = L::kTile;
   constexpr int RE = L::kRowElems;
@@ -328,7 +346,8 @@ split_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const Cta t = cta_coords(lengths, n_heads, n_kv, seq, chunk);
+  const Cta t = cta_coords(lengths, n_heads, n_kv, seq, chunk,
+                                offset);
   const int n_tiles = t.start < t.end ? (t.end - t.start + TP - 1) / TP : 0;
 
   // Q rows of this CTA's heads; rows >= gb and dims >= D are zero
@@ -340,10 +359,11 @@ split_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             : __float2bfloat16(0.f);
   }
 
-  // row p of head kvh of batch b starts at ((b * S + p) * Hkv + kvh) * D
+  // row p of head kvh of batch b starts at b * batch_stride + (p * Hkv +
+  // kvh) * D (batch_stride = S * Hkv * D unless the cache is a view)
   const int row_stride = n_kv * head_dim;
-  const bf16* kbase = k + ((long long)t.b * seq * n_kv + t.kvh) * head_dim;
-  const bf16* vbase = v + ((long long)t.b * seq * n_kv + t.kvh) * head_dim;
+  const bf16* kbase = k + t.b * batch_stride + t.kvh * head_dim;
+  const bf16* vbase = v + t.b * batch_stride + t.kvh * head_dim;
   const TileLoader<bf16, TP, RE, DPAD> loader(head_dim, row_stride);
 #pragma unroll
   for (int i = 0; i < NS - 1; ++i) {
@@ -492,7 +512,7 @@ split_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       a_all += c * a_w[(w * kHeads + g) * DPAD + d];
     }
     const long long bh = (long long)t.b * n_heads + t.h0 + g;
-    if (n_chunks == 1) {
+    if (!ws) {                                     // one chunk, no partials
       out[bh * head_dim + d] = __float2bfloat16(a_all / l_all);
     } else {
       float* wp = ws + (bh * n_chunks + t.c) * wrow;
@@ -542,7 +562,8 @@ split_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                  const TKV* __restrict__ v,
                  const int32_t* __restrict__ lengths, TQ* __restrict__ out,
                  float* __restrict__ ws, int n_heads, int n_kv, int seq,
-                 int head_dim, int chunk, int n_chunks, float scale) {
+                 int head_dim, int chunk, int n_chunks, float scale,
+                 long long batch_stride, int offset) {
   using L = FmaLayout<TKV, DPAD>;
   constexpr int TP = L::kTile;
   constexpr int RE = L::kRowElems;
@@ -559,7 +580,8 @@ split_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const Cta t = cta_coords(lengths, n_heads, n_kv, seq, chunk);
+  const Cta t = cta_coords(lengths, n_heads, n_kv, seq, chunk,
+                                offset);
   const int gb = t.gb, end = t.end;
   const int n_tiles = t.start < end ? (end - t.start + TP - 1) / TP : 0;
 
@@ -572,8 +594,8 @@ split_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
 
   const int row_stride = n_kv * head_dim;
-  const TKV* kbase = k + ((long long)t.b * seq * n_kv + t.kvh) * head_dim;
-  const TKV* vbase = v + ((long long)t.b * seq * n_kv + t.kvh) * head_dim;
+  const TKV* kbase = k + t.b * batch_stride + t.kvh * head_dim;
+  const TKV* vbase = v + t.b * batch_stride + t.kvh * head_dim;
   const TileLoader<TKV, TP, RE, DPAD> loader(head_dim, row_stride);
   auto load_tile = [&](int i) {
     const int p0 = t.start + i * TP;
@@ -723,7 +745,7 @@ split_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     if (j >= n_own) continue;
     const int g = g0 + j * L::kGStride;
     const long long bh = (long long)t.b * n_heads + t.h0 + g;
-    if (n_chunks == 1) {
+    if (!ws) {                                       // one chunk, no partials
       const float l = l_s[g];                        // 0 for an empty row
 #pragma unroll
       for (int e = 0; e < 2; ++e)
@@ -746,11 +768,19 @@ split_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 
 // out[b, h, :] = sum_c exp(m_c - M) acc_c / sum_c exp(m_c - M) l_c over
 // the chunks of one (b, h), M = max_c m_c; chunks with m_c = -inf (no
-// position) are skipped, so a row with none gives 0/0 = NaN.
-template <typename TQ>
+// position) are skipped, so a row with none gives 0/0 = NaN. PARTIALS:
+// write the merged partial row (acc[D], m, l) = (sum_c exp(m_c - M)
+// acc_c, M, sum_c exp(m_c - M) l_c) in fp32 to `part` (B, H, D + 2)
+// instead; a row with no position gives the empty partial (0, -inf, 0).
+// The same log-sum-exp merge serves three callers: the chunks of one
+// flash_decode call, the chunks of one cache block
+// (cemr_flash_decode_partials) and the blocks' partial rows
+// (cemr_flash_decode_merge), which is the reference's pmax / psum combine
+// of context-parallel decode (src/repro/distributed/context_parallel.py).
+template <typename TQ, bool PARTIALS>
 __global__ void __launch_bounds__(kThreads)
 combine_kernel(const float* __restrict__ ws, TQ* __restrict__ out,
-               int n_chunks, int head_dim) {
+               float* __restrict__ part, int n_chunks, int head_dim) {
   const int wrow = head_dim + 2;
   const float* w = ws + (long long)blockIdx.x * n_chunks * wrow;
   float m_all = -INFINITY;
@@ -766,7 +796,16 @@ combine_kernel(const float* __restrict__ ws, TQ* __restrict__ out,
       l += s * wc[head_dim + 1];
       a += s * wc[d];
     }
-    out[(long long)blockIdx.x * head_dim + d] = from_float<TQ>(a / l);
+    if constexpr (PARTIALS) {
+      float* p = part + (long long)blockIdx.x * wrow;
+      p[d] = a;
+      if (d == 0) {
+        p[head_dim] = m_all;
+        p[head_dim + 1] = l;
+      }
+    } else {
+      out[(long long)blockIdx.x * head_dim + d] = from_float<TQ>(a / l);
+    }
   }
 }
 
@@ -779,6 +818,8 @@ struct Args {
   float* ws;
   int b, h, hkv, s, d, chunk, n_chunks;
   float scale;
+  long long batch_stride;  // elements from one batch row of k, v to the next
+  int offset;              // the block's first position (lengths count from 0)
   cudaStream_t stream;
 };
 
@@ -786,23 +827,35 @@ struct Args {
 // the KV heads of a chunk innermost.
 template <typename TQ, typename TKV, auto Kernel>
 cudaError_t launch_split(int smem_bytes, const Args& a) {
-  // shared memory above 48 KB must be asked for, once per kernel
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (attr != cudaSuccess) return attr;
+  // shared memory above 48 KB must be asked for, once per kernel on each
+  // device (the attribute belongs to the current device): bit d of
+  // `asked` says it was on device d (a device past 63 asks every time)
+  static std::atomic<unsigned long long> asked{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!(asked.load() & bit) || !bit) {
+    err = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return err;
+    asked.fetch_or(bit);
+  }
   const int n_hblk = (a.h / a.hkv + kHeads - 1) / kHeads;
   const dim3 grid((unsigned)(a.hkv * n_hblk), (unsigned)a.n_chunks,
                   (unsigned)a.b);
   Kernel<<<grid, kThreads, smem_bytes, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.lengths, static_cast<TQ*>(a.out), a.ws,
-      a.h, a.hkv, a.s, a.d, a.chunk, a.n_chunks, a.scale);
+      a.h, a.hkv, a.s, a.d, a.chunk, a.n_chunks, a.scale, a.batch_stride,
+      a.offset);
   return cudaGetLastError();
 }
 
 bool aligned16(const Args& a, int elem_bytes) {
   return (a.d * elem_bytes) % 16 == 0 && (uintptr_t)a.k % 16 == 0
-         && (uintptr_t)a.v % 16 == 0;
+         && (uintptr_t)a.v % 16 == 0
+         && (a.batch_stride * elem_bytes) % 16 == 0;
 }
 
 // The kernel of each route for one DPAD (D rounded up to 32, 64, 128 or
@@ -848,11 +901,34 @@ auto with_route(int d, int q_bf16, int kv_bf16, int tensor_core, F f) {
   return with_dpad<Fma<float, float>::At>(d, f);
 }
 
-template <typename TQ>
-cudaError_t launch_combine(const Args& a) {
-  combine_kernel<TQ><<<(unsigned)(a.b * a.h), kThreads, 0, a.stream>>>(
-      a.ws, static_cast<TQ*>(a.out), a.n_chunks, a.d);
+// the merge of n_chunks partial rows per (b, h) of ws into out (q's dtype)
+// or, with part, into one partial row per (b, h)
+cudaError_t launch_combine(const float* ws, void* out, float* part, int bh,
+                           int n_chunks, int d, int out_bf16,
+                           cudaStream_t stream) {
+  if (part)
+    combine_kernel<float, true><<<(unsigned)bh, kThreads, 0, stream>>>(
+        ws, nullptr, part, n_chunks, d);
+  else if (out_bf16)
+    combine_kernel<bf16, false><<<(unsigned)bh, kThreads, 0, stream>>>(
+        ws, static_cast<bf16*>(out), nullptr, n_chunks, d);
+  else
+    combine_kernel<float, false><<<(unsigned)bh, kThreads, 0, stream>>>(
+        ws, static_cast<float*>(out), nullptr, n_chunks, d);
   return cudaGetLastError();
+}
+
+// The arguments outside the split kernels' contract, or the route's
+// alignment, give cudaErrorInvalidValue.
+bool valid_split(const Args& a, int q_bf16, int kv_bf16, int tensor_core) {
+  if (a.b < 1 || a.s < 1 || a.d < 1 || a.d > kMaxHeadDim || a.hkv < 1 ||
+      a.h < a.hkv || a.h % a.hkv != 0 || a.chunk < 1 || a.n_chunks < 1 ||
+      (long long)a.chunk * a.n_chunks < a.s ||
+      (long long)a.chunk * (a.n_chunks - 1) >= a.s || a.offset < 0 ||
+      (a.b > 1 && a.batch_stride < (long long)a.s * a.hkv * a.d))
+    return false;
+  return !tensor_core || (q_bf16 && kv_bf16 && a.d % 16 == 0 &&
+                          aligned16(a, 2));
 }
 
 }  // namespace
@@ -891,14 +967,10 @@ int cemr_flash_decode(const void* q, const void* k, const void* v,
                       float scale, int q_bf16, int kv_bf16, int tensor_core,
                       void* stream, int* n_launched) {
   *n_launched = 0;
-  if (b < 1 || s < 1 || d < 1 || d > kMaxHeadDim || hkv < 1 || h < hkv ||
-      h % hkv != 0 || chunk < 1 || n_chunks < 1 ||
-      (long long)chunk * n_chunks < s ||
-      (long long)chunk * (n_chunks - 1) >= s || (n_chunks > 1 && !ws))
-    return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, lengths, out, ws, b, h, hkv, s, d, chunk, n_chunks,
-               scale, (cudaStream_t)stream};
-  if (tensor_core && !(q_bf16 && kv_bf16 && d % 16 == 0 && aligned16(a, 2)))
+  const Args a{q, k, v, lengths, out, n_chunks > 1 ? ws : nullptr, b, h,
+               hkv, s, d, chunk, n_chunks, scale, (long long)s * hkv * d, 0,
+               (cudaStream_t)stream};
+  if (!valid_split(a, q_bf16, kv_bf16, tensor_core) || (n_chunks > 1 && !ws))
     return (int)cudaErrorInvalidValue;
   cudaError_t err =
       with_route(d, q_bf16, kv_bf16, tensor_core,
@@ -906,9 +978,54 @@ int cemr_flash_decode(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   *n_launched = 1;
   if (n_chunks == 1) return 0;
-  err = q_bf16 ? launch_combine<bf16>(a) : launch_combine<float>(a);
+  err = launch_combine(a.ws, out, nullptr, b * h, n_chunks, d, q_bf16,
+                       a.stream);
   if (err == cudaSuccess) *n_launched = 2;
   return (int)err;
+}
+
+// The partials of one block of cache positions [offset, offset + S): k
+// and v (B, S, Hkv, D) with rows of Hkv * D contiguous elements and
+// batch_stride elements from one batch row to the next (a view along S of
+// a longer cache), lengths (B,) int32 of the whole row or NULL (every
+// position of the block valid). Positions offset + p < lengths[b] count,
+// so the block's length is clamp(lengths[b] - offset, 0, S), worked out
+// by each CTA. The split kernel always writes the workspace ws (B, H,
+// n_chunks, D + 2), one chunk or many, and the combine merges its chunks
+// into part (B, H, D + 2) fp32: acc[D], m, l per (b, h); a (b, h) with no
+// position in the block gives (0, -inf, 0). Returns and sets *n_launched
+// as cemr_flash_decode does.
+int cemr_flash_decode_partials(const void* q, const void* k, const void* v,
+                               const int32_t* lengths, float* ws,
+                               float* part, int b, int h, int hkv, int s,
+                               int d, long long batch_stride, int offset,
+                               int chunk, int n_chunks, float scale,
+                               int q_bf16, int kv_bf16, int tensor_core,
+                               void* stream, int* n_launched) {
+  *n_launched = 0;
+  const Args a{q, k, v, lengths, nullptr, ws, b, h, hkv, s, d, chunk,
+               n_chunks, scale, batch_stride, offset, (cudaStream_t)stream};
+  if (!valid_split(a, q_bf16, kv_bf16, tensor_core) || !ws || !part)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      with_route(d, q_bf16, kv_bf16, tensor_core,
+                 [&a](auto route) { return decltype(route)::run(a); });
+  if (err != cudaSuccess) return (int)err;
+  *n_launched = 1;
+  err = launch_combine(ws, nullptr, part, b * h, n_chunks, d, 0, a.stream);
+  if (err == cudaSuccess) *n_launched = 2;
+  return (int)err;
+}
+
+// out (B, H, D) in bf16 (out_bf16) or fp32 from n partial rows per (b, h):
+// parts (B, H, n, D + 2) fp32, contiguous, as cemr_flash_decode_partials
+// writes them. A (b, h) whose n rows are all empty gives 0/0 = NaN.
+int cemr_flash_decode_merge(const float* parts, void* out, int b, int h,
+                            int n, int d, int out_bf16, void* stream) {
+  if (b < 1 || h < 1 || n < 1 || d < 1 || d > kMaxHeadDim)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_combine(parts, out, nullptr, b * h, n, d, out_bf16,
+                             (cudaStream_t)stream);
 }
 
 }  // extern "C"

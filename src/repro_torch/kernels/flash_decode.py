@@ -1,6 +1,8 @@
 """Wrapper of the Hopper decode-attention kernels (`csrc/flash_decode.cu`).
 
     flash_decode(q, k, v, lengths=None) -> out (B, H, D)
+    flash_decode_partials(q, k, v, lengths=None, offset=0) -> (B, H, D + 2)
+    flash_decode_merge(partials, dtype) -> out (B, H, D)
 
 q (B, H, D) and the cache k, v (B, S, Hkv, D) are float32 or bfloat16 (the
 cache may differ from q); out has q's dtype. The wrapper takes the plain
@@ -27,6 +29,22 @@ call had more than one chunk).
 Contract (kernels and plain version alike): 1 <= lengths[b] <= S. A row
 with lengths[b] == 0 has nothing to attend to and gives NaN; the wrapper
 does not check the values, which would cost a device-to-host sync per call.
+
+The partials entries serve context-parallel decode
+(`distributed/context_parallel.py`). `flash_decode_partials` runs the same
+split kernels over one block of cache positions [offset, offset + S): k
+and v may be views along S of a longer cache (rows contiguous, any batch
+stride), lengths are the whole row's and each CTA clamps lengths[b] -
+offset to the block on the device. It always writes the workspace and
+merges the block's chunks, in the combine kernel's partials mode, into one
+fp32 row (acc[D], m, l) per (b, h); a block wholly past lengths[b] gives
+(0, -inf, 0). `flash_decode_merge` merges n such rows per (b, h),
+(B, H, n, D + 2), into the output with the same combine kernel; rows all
+empty give NaN, as above. Their plain versions are
+`ref.flash_decode_partials_ref` and `ref.flash_decode_merge_ref`. Each
+counts its calls as `flash_decode` does (`launches`, and
+`launches_by_route` / `launches_by_kernel`; the merge launches only a
+combine and has no route).
 """
 from __future__ import annotations
 
@@ -38,7 +56,8 @@ import torch
 from . import ref
 from .build import load_library
 
-__all__ = ["flash_decode", "reset_launches", "split_plan", "route",
+__all__ = ["flash_decode", "flash_decode_partials", "flash_decode_merge",
+           "reset_launches", "split_plan", "route", "WRAPPERS",
            "LIBRARY", "MAX_HEAD_DIM", "ROUTES", "KERNELS"]
 
 LIBRARY = "flash_decode"
@@ -67,6 +86,12 @@ def _lib() -> ctypes.CDLL:
                                       i, ctypes.c_float, i, i, i, p,
                                       ctypes.POINTER(i)]
     lib.cemr_flash_decode.restype = i
+    lib.cemr_flash_decode_partials.argtypes = [
+        p, p, p, p, p, p, i, i, i, i, i, ctypes.c_longlong, i, i, i,
+        ctypes.c_float, i, i, i, p, ctypes.POINTER(i)]
+    lib.cemr_flash_decode_partials.restype = i
+    lib.cemr_flash_decode_merge.argtypes = [p, p, i, i, i, i, i, p]
+    lib.cemr_flash_decode_merge.restype = i
     lib.cemr_flash_decode_max_heads_per_cta.argtypes = []
     lib.cemr_flash_decode_max_heads_per_cta.restype = i
     lib.cemr_flash_decode_smem_bytes.argtypes = [i, i, i, i]
@@ -107,7 +132,9 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return "cuda_core"
 
 
-def _check(q, k, v, lengths) -> None:
+def _check(q, k, v, lengths, *, block: bool = False) -> None:
+    """Raise on what the kernels do not take. With `block`, k and v may be
+    views along S: each row of Hkv * D contiguous, one batch stride."""
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"need q (B, H, D) and k, v (B, S, Hkv, D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -133,8 +160,13 @@ def _check(q, k, v, lengths) -> None:
     for name, x in tensors:
         if x.device != q.device:
             raise ValueError(f"{name} on {x.device}, q on {q.device}")
-        if not x.is_contiguous():
+        if not x.is_contiguous() and not (block and name in ("k", "v")):
             raise ValueError(f"{name} must be contiguous")
+    if block and (k.stride() != v.stride()
+                  or k.stride()[1:] != (hkv * d, d, 1)):
+        raise ValueError(f"k and v must be views along S with rows of "
+                         f"Hkv * D contiguous elements; strides "
+                         f"{k.stride()}, {v.stride()}")
 
 
 @functools.cache
@@ -172,22 +204,113 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             b, h, hkv, s, d, chunk, n_chunks, _scale(d),
             int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
             int(way == "tensor_core"), stream, ctypes.byref(n_launched))
-    if code != 0:
-        msg = lib.cemr_error_string(code).decode()
-        raise RuntimeError(f"flash_decode launch failed: CUDA error {code} "
-                           f"({msg})")
-    flash_decode.launches += 1
-    flash_decode.launches_by_route[way] += 1
-    for name in KERNELS[:n_launched.value]:
-        flash_decode.launches_by_kernel[name] += 1
+    _counted(flash_decode, code, KERNELS[:n_launched.value], way)
     return out
 
 
+def _counted(fn, code: int, kernels: tuple, way: str | None = None) -> None:
+    """Raise if the library returned a CUDA error, else count the call of
+    `fn`, on route `way` where it has one, and the device kernels it
+    launched."""
+    if code != 0:
+        msg = _lib().cemr_error_string(code).decode()
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {code} "
+                           f"({msg})")
+    fn.launches += 1
+    if way is not None:
+        fn.launches_by_route[way] += 1
+    for name in kernels:
+        fn.launches_by_kernel[name] += 1
+
+
+def flash_decode_partials(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, lengths: torch.Tensor | None = None,
+                          offset: int = 0) -> torch.Tensor:
+    """The decode partials of one block of cache positions [offset,
+    offset + S): k, v (B, S, Hkv, D) hold the block (views along S of a
+    longer cache are taken as they are), lengths (B,) int32 are the whole
+    rows' (None: every position of the block counts). Per (b, h) the fp32
+    row (acc[D], m, l) of the positions offset + p < lengths[b]: the
+    largest score m, l = sum exp(s - m), acc = sum exp(s - m) v; a block
+    with none gives (0, -inf, 0). Returns (B, H, D + 2) float32."""
+    _check(q, k, v, lengths, block=True)
+    offset = int(offset)
+    if offset < 0:
+        raise ValueError(f"offset {offset} < 0")
+    dev = q.device
+    if dev.type == "cpu":
+        return ref.flash_decode_partials_ref(q, k, v, lengths, offset)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_decode_partials runs on cpu or cuda, not "
+                         f"{dev}")
+    lib = _lib()
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    chunk, n_chunks, _ = split_plan(b, h, hkv, s, d)
+    way = route(q, k, v)
+    ws = torch.empty((b, h, n_chunks, d + 2), dtype=torch.float32,
+                     device=dev)
+    part = torch.empty((b, h, d + 2), dtype=torch.float32, device=dev)
+    n_launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.cemr_flash_decode_partials(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            lengths.data_ptr() if lengths is not None else None,
+            ws.data_ptr(), part.data_ptr(), b, h, hkv, s, d, k.stride(0),
+            offset, chunk, n_chunks, _scale(d),
+            int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
+            int(way == "tensor_core"), stream, ctypes.byref(n_launched))
+    _counted(flash_decode_partials, code, KERNELS[:n_launched.value], way)
+    return part
+
+
+def flash_decode_merge(partials: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """n partial rows per (b, h), (B, H, n, D + 2) float32 as
+    `flash_decode_partials` writes them (stacked on dim 2), merged by the
+    log-sum-exp rescale into out (B, H, D) in `dtype` (float32 or
+    bfloat16)."""
+    if partials.dim() != 4 or partials.dtype != torch.float32 \
+            or not 3 <= partials.shape[-1] <= MAX_HEAD_DIM + 2 \
+            or 0 in partials.shape:
+        raise ValueError(f"need float32 partials (B, H, n, D + 2) with "
+                         f"1 <= D <= {MAX_HEAD_DIM}; got {partials.dtype} "
+                         f"{tuple(partials.shape)}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"the output must be float32 or bfloat16, not "
+                        f"{dtype}")
+    if not partials.is_contiguous():
+        raise ValueError("partials must be contiguous")
+    dev = partials.device
+    if dev.type == "cpu":
+        return ref.flash_decode_merge_ref(partials, dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_decode_merge runs on cpu or cuda, not "
+                         f"{dev}")
+    lib = _lib()
+    b, h, n, row = partials.shape
+    d = row - 2
+    out = torch.empty((b, h, d), dtype=dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.cemr_flash_decode_merge(
+            partials.data_ptr(), out.data_ptr(), b, h, n, d,
+            int(dtype == torch.bfloat16), stream)
+    _counted(flash_decode_merge, code, ("combine",))
+    return out
+
+
+# the wrappers that count their launches
+WRAPPERS = (flash_decode, flash_decode_partials, flash_decode_merge)
+
+
 def reset_launches() -> None:
-    """Set the wrapper's launch counts to 0."""
-    flash_decode.launches = 0
-    flash_decode.launches_by_route = dict.fromkeys(ROUTES, 0)
-    flash_decode.launches_by_kernel = dict.fromkeys(KERNELS, 0)
+    """Set the wrappers' launch counts to 0."""
+    for fn in WRAPPERS:
+        fn.launches = 0
+        fn.launches_by_route = dict.fromkeys(ROUTES, 0)
+        fn.launches_by_kernel = dict.fromkeys(KERNELS, 0)
 
 
 reset_launches()

@@ -16,7 +16,9 @@ from ..core.bitops import row_popcount
 
 __all__ = ["bitmap_intersect_ref", "fused_expand_intersect_ref",
            "tile_intersect_ref", "expand_select_ref", "expand_intersect_ref",
-           "flash_decode_ref", "flash_decode_split_ref", "leaf_count_ref"]
+           "flash_decode_ref", "flash_decode_split_ref",
+           "flash_decode_partials_ref", "flash_decode_merge_ref",
+           "leaf_count_ref"]
 
 
 def _jnp_index(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -129,38 +131,63 @@ def flash_decode_ref(q, k, v, lengths=None):
 
 def flash_decode_split_ref(q, k, v, lengths=None, *, chunk: int):
     """`flash_decode_ref` computed as the split kernels compute it, in
-    float32: each chunk of `chunk` positions gives per query head its max
-    score m, its sum l of exp(s - m) and acc = sum exp(s - m) v (an empty
-    chunk m = -inf, l = 0, acc = 0); the chunks then merge with the
-    log-sum-exp rescale exp(m_c - M). The plain version of the combine
-    kernel; tests use it, the main path does not. A row with
+    float32: each chunk of `chunk` positions gives its partial rows
+    (`flash_decode_partials_ref`: per query head its max score m, its sum
+    l of exp(s - m) and acc = sum exp(s - m) v; an empty chunk m = -inf,
+    l = 0, acc = 0), and the chunks merge with the log-sum-exp rescale
+    exp(m_c - M) (`flash_decode_merge_ref`). The plain version of the
+    combine kernel; tests use it, the main path does not. A row with
     lengths[b] == 0 gives 0/0 = NaN."""
+    s = k.shape[1]
+    parts = [flash_decode_partials_ref(q, k[:, c0:c0 + chunk],
+                                       v[:, c0:c0 + chunk], lengths, c0)
+             for c0 in range(0, s, chunk)]
+    return flash_decode_merge_ref(torch.stack(parts, dim=2), q.dtype)
+
+
+def flash_decode_partials_ref(q, k, v, lengths=None, offset: int = 0):
+    """The decode partials of one block of cache positions [offset,
+    offset + S), in float32: the reference's `_local_partials`
+    (src/repro/distributed/context_parallel.py:33) and the plain version
+    of `flash_decode_partials`. k, v (B, S, Hkv, D) hold the block; a
+    position offset + p counts when it is < lengths[b] (every position
+    with lengths None). Per (b, h) the row (acc[D], m, l): m the block's
+    largest score q·k / sqrt(D), l = sum exp(s - m) and acc = sum
+    exp(s - m) v. A block with no position counted gives (0, -inf, 0)
+    where the reference carries m = -1e30. Returns (B, H, D + 2)
+    float32."""
     b, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
-    group = h // hkv
     scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32))
-    qg = q.reshape(b, hkv, group, d).float()
-    lens = (torch.full((b,), s, device=k.device) if lengths is None
-            else lengths.long().clamp(0, s))
-    ms, ls, accs = [], [], []
-    for c0 in range(0, s, chunk):
-        kc, vc = k[:, c0:c0 + chunk].float(), v[:, c0:c0 + chunk].float()
-        sc = torch.einsum("bngd,bsnd->bngs", qg, kc) * scale
-        pos = torch.arange(c0, c0 + kc.shape[1], device=k.device)
-        valid = (pos[None, :] < lens[:, None])[:, None, None, :]
+    qg = q.reshape(b, hkv, h // hkv, d).float()
+    sc = torch.einsum("bngd,bsnd->bngs", qg, k.float()) * scale
+    if lengths is not None:
+        pos = offset + torch.arange(s, device=k.device)
+        valid = (pos[None, :] < lengths.long()[:, None])[:, None, None, :]
         sc = sc.masked_fill(~valid, float("-inf"))
-        m = sc.amax(-1)                                    # (b, n, g)
-        e = torch.exp(sc - torch.where(torch.isinf(m), 0.0, m)[..., None])
-        ms.append(m)
-        ls.append(e.sum(-1))
-        accs.append(torch.einsum("bngs,bsnd->bngd", e, vc))
-    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
-    m_all = m.amax(0)
+    m = sc.amax(-1)                                        # (b, n, g)
+    e = torch.exp(sc - torch.where(torch.isinf(m), 0.0, m)[..., None])
+    acc = torch.einsum("bngs,bsnd->bngd", e, v.float())
+    return torch.cat([acc.reshape(b, h, d), m.reshape(b, h, 1),
+                      e.sum(-1).reshape(b, h, 1)], dim=-1)
+
+
+def flash_decode_merge_ref(partials, dtype):
+    """n partial rows per (b, h), (B, H, n, D + 2) float32 as
+    `flash_decode_partials_ref` gives them, merged into the output
+    (B, H, D) in `dtype`: sum_i w_i acc_i / sum_i w_i l_i with w_i =
+    exp(m_i - max_i m_i), an empty row (m = -inf) weighing 0. The plain
+    version of `flash_decode_merge`, and the reference's pmax / psum
+    combine (context_parallel.py:66-71). A (b, h) whose rows are all
+    empty gives 0/0 = NaN."""
+    d = partials.shape[-1] - 2
+    acc, m, l = partials[..., :d], partials[..., d], partials[..., d + 1]
+    m_all = m.amax(-1, keepdim=True)
     w = torch.where(torch.isinf(m), 0.0,
                     torch.exp(m - torch.where(torch.isinf(m_all), 0.0,
                                               m_all)))
-    out = (w[..., None] * acc).sum(0) / (w * l).sum(0)[..., None]
-    return out.reshape(b, h, d).to(q.dtype)
+    out = (w[..., None] * acc).sum(-2) / (w * l).sum(-1)[..., None]
+    return out.to(dtype)
 
 
 def leaf_count_ref(bms: list, groups: list[list[int]]):

@@ -8,14 +8,19 @@ lists for its device (every visible card on CUDA, one lane on the CPU) and
 returns None at size 1, so the single-device scheduler runs. A mesh that
 repeats one device (`EnumMesh((cuda0,) * 4)`) is built only by constructing
 the schedulers directly, as the tests and `chip_smoke.py` do.
+
+`MeshShape` is a mesh's axis names and sizes without devices: what
+`hbm_model.hbm_floor_bytes` reads of a mesh (`.size`, `.shape`), the
+counterpart of the shape of the reference's jax Mesh.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
-__all__ = ["EnumMesh", "lane_devices", "make_enum_mesh"]
+__all__ = ["EnumMesh", "MeshShape", "lane_devices", "make_enum_mesh"]
 
 
 def _indexed(device) -> torch.device:
@@ -43,6 +48,34 @@ class EnumMesh:
     def size(self) -> int:
         """The lane count."""
         return len(self.devices)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """Axis names and sizes of a device mesh, no devices:
+    `MeshShape(("data", "model"), (4, 2))` is 8 devices, 2-way tensor
+    parallel."""
+
+    axis_names: tuple
+    axis_sizes: tuple
+
+    def __post_init__(self):
+        names, sizes = tuple(self.axis_names), tuple(self.axis_sizes)
+        if len(names) != len(sizes) or len(set(names)) != len(names) \
+                or any(int(n) < 1 for n in sizes):
+            raise ValueError(f"axes {names} of sizes {sizes}")
+        object.__setattr__(self, "axis_names", names)
+        object.__setattr__(self, "axis_sizes", tuple(int(n) for n in sizes))
+
+    @property
+    def shape(self) -> dict:
+        """{axis name: size}, in axis order."""
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        """The device count."""
+        return math.prod(self.axis_sizes)
 
 
 def lane_devices(device) -> list[torch.device]:

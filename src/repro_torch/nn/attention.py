@@ -29,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import ops as kops
 from . import core
 
-__all__ = ["GQA", "MLA", "flash_attention", "init_kv_cache",
+__all__ = ["GQA", "MLA", "flash_attention", "cp_attention", "init_kv_cache",
            "init_mla_cache"]
 
 _NEG = -1e30
@@ -117,6 +117,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ----------------------------------------------------------------------- GQA
+def cp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mp: int, *, causal: bool = True) -> torch.Tensor:
+    """Blockwise context-parallel attention (the reference's
+    `cp_attention`): the queries split into `mp` sequence blocks, each
+    against the whole K and V, with float32 scores and a plain softmax.
+    q (B, S, H, D), k, v (B, S, Hkv, D), S a multiple of mp → (B, S, H, D)
+    in q's dtype.
+
+    The blocks run one after another, so memory holds one (B, S/mp, H, S)
+    float32 score slab at a time, the reference's one slab a device. The
+    reference places block i on device i of its `model` axis with
+    `constrain(qb, "cp_qblocks")`; here the block loop is where that
+    placement will go once the port has `constrain` (ROADMAP.md Queue 1)."""
+    b, s, h, d = q.shape
+    n = k.shape[2]
+    g, sb = h // n, s // mp
+    kf, vf = k.float(), v.float()
+    kpos = torch.arange(s, device=q.device)
+    blocks = []
+    for i in range(mp):
+        qb = q[:, i * sb:(i + 1) * sb].reshape(b, sb, n, g, d).float()
+        scores = torch.einsum("bqngd,bsnd->bqngs", qb, kf) / math.sqrt(d)
+        if causal:
+            qpos = i * sb + torch.arange(sb, device=q.device)
+            mask = qpos[:, None] >= kpos[None, :]             # (sb, S)
+            scores = scores.masked_fill(~mask[None, :, None, None, :],
+                                        _NEG)
+        p = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bqngs,bsnd->bqngd", p, vf)
+        blocks.append(o.reshape(b, sb, h, d).to(q.dtype))
+    return torch.cat(blocks, dim=1)
+
+
 class GQA(nn.Module):
     """Grouped-query attention: n_heads query heads share n_kv KV heads."""
 
@@ -149,15 +182,21 @@ class GQA(nn.Module):
                 core.apply_rope(k, cos, sin, rot), v)
 
     def forward(self, x: torch.Tensor, *, q_chunk: int = 512,
-                k_chunk: int = 1024, causal: bool = True) -> torch.Tensor:
+                k_chunk: int = 1024, causal: bool = True,
+                cp_degree: int = 0) -> torch.Tensor:
         """Self-attention over the whole sequence (the reference's
         `gqa_attention`; with `causal=False` the bidirectional attention of
         its `encoder_forward`): x (B, S, d_model) at positions 0..S-1 → y
-        (B, S, d_model)."""
+        (B, S, d_model). With `cp_degree` set and S a multiple of it, the
+        attention is `cp_attention` over that many query blocks, as in the
+        reference; else `flash_attention`."""
         b, s, _ = x.shape
         q, k, v = self.qkv(x, torch.arange(s, device=x.device))
-        o = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
-                            k_chunk=k_chunk)
+        if cp_degree and s % cp_degree == 0:
+            o = cp_attention(q, k, v, cp_degree, causal=causal)
+        else:
+            o = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                                k_chunk=k_chunk)
         return core.dense(self.wo, o.reshape(b, s, self.n_heads
                                              * self.head_dim))
 

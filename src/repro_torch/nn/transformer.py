@@ -45,11 +45,6 @@ class Block(nn.Module):
     def __init__(self, cfg: LMConfig, *, gen: torch.Generator, device,
                  dtype=torch.float32):
         super().__init__()
-        if cfg.cp_degree:
-            raise NotImplementedError(
-                f"{cfg.name}: cp_degree {cfg.cp_degree}: context-parallel "
-                "attention (the reference's cp_attention) waits for "
-                "distributed/context_parallel (ROADMAP.md Queue 1)")
         kw = dict(gen=gen, device=device, dtype=dtype)
         self.ln1 = core.RMSNorm(cfg.d_model, device=device, dtype=dtype)
         self.ln2 = core.RMSNorm(cfg.d_model, device=device, dtype=dtype)
@@ -125,7 +120,10 @@ def _ffn(blk: Block, cfg: LMConfig, y: torch.Tensor, **moe_kw):
 
 def _block_apply(blk: Block, cfg: LMConfig, x: torch.Tensor):
     y = core.rmsnorm(blk.ln1, x)
-    x = x + blk.attn(y, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
+    # GQA takes cfg.cp_degree (cp_attention); MLA, as the reference's,
+    # has no context-parallel form
+    cp = {} if cfg.attention == "mla" else {"cp_degree": cfg.cp_degree}
+    x = x + blk.attn(y, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk, **cp)
     y = core.rmsnorm(blk.ln2, x)
     f, aux = _ffn(blk, cfg, y, group_size=cfg.moe_group)
     return x + f, aux

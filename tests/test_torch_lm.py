@@ -87,8 +87,10 @@ def test_config_is_the_reference_config(reduced):
 def test_unported_arch_and_blocks_name_the_roadmap():
     """The registry holds the reference's ten ids (its five LM ids among
     them), with its order and shapes; an unknown id raises the reference's
-    KeyError; context-parallel attention (cp_degree > 0) still raises and
-    names ROADMAP.md."""
+    KeyError; context-parallel attention (cp_degree > 0), once the port's
+    last unported block, now builds, its GQA layers routed to
+    `cp_attention` (tests/test_torch_cp_attention.py holds it against the
+    reference)."""
     lm_ids = [a for a in jregistry.arch_ids()
               if jregistry.get_config(a).family == "lm"]
     assert list(registry.ARCHS) == registry.arch_ids() \
@@ -103,8 +105,9 @@ def test_unported_arch_and_blocks_name_the_roadmap():
         with pytest.raises(KeyError, match="unknown arch 'llama-9'"):
             call("llama-9")
     cfg = registry.get_config(ARCH, reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.lm_init(dataclasses.replace(cfg, cp_degree=2), device="cpu")
+    model = T.lm_init(dataclasses.replace(cfg, cp_degree=2), device="cpu")
+    assert model.cfg.cp_degree == 2
+    assert len(model.blocks) == cfg.n_layers
 
 
 # ------------------------------------------------------------- primitives

@@ -43,13 +43,25 @@ STATS_CASES = (
                       "cer_buffer_slots": 2, "failure_cache_slots": 1}),
        ("packing", {"intersect": "fused", "tile_rows": 8}),
        ("failing", {"intersect": "fused", "tile_rows": 8, "runs": 2,
-                    "failure_cache_slots": 2})])
+                    "failure_cache_slots": 2})]
+    # MatchOptions knobs that act before the engine (order_heuristic,
+    # use_cv's thresholds, pack_tiles) or only on the ref engine (use_fs,
+    # use_cer): through the Matcher on both sides (`options`)
+    + [(w, {"options": {"engine": "vector", "tile_rows": 8,
+                        "limit": 10 ** 9, **knob}})
+       for w in ("random1", "brother")
+       for knob in ({"use_cv": False}, {"use_fs": False},
+                    {"use_cer": False}, {"order_heuristic": "ri"},
+                    {"order_heuristic": "gql"}, {"pack_tiles": False})])
 
 
 @pytest.fixture(scope="module")
 def reference_stats():
-    cases = [dict(workload=w, **kw) for w, kw in STATS_CASES]
-    return run_reference(cases)
+    cases = [dict(kind="matcher", call="count", workload=w, **kw)
+             if "options" in kw else dict(workload=w, **kw)
+             for w, kw in STATS_CASES]
+    return [r[0] if isinstance(r, list) else r
+            for r in run_reference(cases)]
 
 
 @pytest.mark.parametrize("use_dedup", [True, False])
@@ -78,6 +90,16 @@ def test_counts_match_cemr_match_over_the_knob_matrix(name, intersect,
                               for w, kw in STATS_CASES])
 def test_vector_stats_match_the_reference_scheduler(case, reference_stats):
     name, knobs = STATS_CASES[case]
+    want = reference_stats[case]
+    if "options" in knobs:
+        query, data = workload(name)
+        out = Matcher(Dataset.from_graph(port_graph(data)),
+                      device="cpu").count(port_graph(query),
+                                          MatchOptions(**knobs["options"]))
+        assert out.engine == "vector"
+        assert out.count == want["count"]
+        assert dataclasses.asdict(out.stats) == want["stats"]
+        return
     knobs = dict(knobs)
     runs = knobs.pop("runs", 1)
     cs, an, plan = reference_plan(name)
@@ -86,7 +108,6 @@ def test_vector_stats_match_the_reference_scheduler(case, reference_stats):
                        **knobs)
     for _ in range(runs):
         res = eng.run(limit=10 ** 9)
-    want = reference_stats[case]
     assert res.count == want["count"]
     assert res.timed_out == want["timed_out"]
     assert dataclasses.asdict(res.stats) == want["stats"]
