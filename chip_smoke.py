@@ -274,6 +274,35 @@ Phases, in order; any failure exits non-zero:
               (equiformer-v2: 512 of 1,024); ms a step, peak memory, model_flops over the time as
               a share of the float32 peak (hw()["flops_f32"]). Prints phase
               5d's wall; `run_phase_5d(dev, card)` runs it alone;
+  5e. placement — last, once every other phase has freed the card: one
+              spawned NCCL rank a visible card (`placement_rank`), a
+              (data, model) mesh of them ((1, 1) on one card, (2, 2) on
+              four); qwen2-1.5b at full width in float32 weights: one
+              float32 train_4k step at batch 4, undistributed and then
+              distributed by the policy in its sharding context, loss and
+              gnorm held within PLACE_LOSS_RTOL / PLACE_GNORM_RTOL, then a
+              timed bf16 step of each; 3 decode_32k steps (float32
+              activations, bf16 caches) at batch 32 over whole caches,
+              then over caches made in the decode rules' context
+              (DTensors placed by `cache_bsnd`, even on (1, 1)), logits
+              held within PLACE_LOGITS_ATOL, every kernel's launches
+              counted (a partials and a merge one a layer and step, no
+              other), layer 0 timed both ways; the same 3 steps in bf16
+              activations with the plain attention, the whole-cache
+              kernel and the sharded route, each partials and merge call
+              of the last held against its plain version on its own
+              inputs, its logits held by PLACE_BF16_RATIO; the CEMR engine
+              cell at the reference's size (3 tables of 262,144 x 8,192
+              words, 65,536 rows) on each rank's local shards through
+              `bitmap_intersect` (launches counted), R and pop
+              bit-identical to the plain version and to bitmap_intersect
+              over the whole tables, then timed on the rank's shard beside
+              its plain version (the kernels line's bitmap_intersect row).
+              Then the dry runs of qwen2-1.5b x train_4k on (16, 16) and
+              of the engine cell on (2, 16, 16) on the host, one after the
+              other, their rows printed. A failed check or rank fails the
+              script; `chip_dist.py` runs this phase without the dry runs
+              on several cards;
   6. timing — each kernel's median device time at its path's shapes beside
               its plain version's, its bound and, for flash_decode, the
               time of `scaled_dot_product_attention`, the achieved bytes/s
@@ -289,18 +318,24 @@ Phases, in order; any failure exits non-zero:
               numbers (flash_decode's with phase 5a's and 5c's launches
               and its times at their shapes; flash_decode_partials' and
               flash_decode_merge's from phase 5a's sharded check; each row
-              with phase 5d's 0 launches by path), and last the line
+              with phase 5d's 0 launches by path and phase 5e's
+              launches; the partials' and merge's with phase 5e's held
+              differences), and last the line
               {"ok": true, "device": {"platform": "gpu", ...}}.
 
 It imports nothing of jax or of the JAX package `repro`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import os
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -2509,8 +2544,13 @@ def partials_agree(got, want, where: str) -> float:
         return 0.0
     g, w = got[~empty], want[~empty]
     m_err = float((g[:, -2] - w[:, -2]).abs().max())
-    rel = max(float((g[:, i] - w[:, i]).abs().max() / w[:, i].abs().max())
-              for i in (slice(0, -2), -1))
+
+    def rel(i):     # of the largest magnitude; exact where that is 0
+        diff, scale = (float((g[:, i] - w[:, i]).abs().max()),
+                       float(w[:, i].abs().max()))
+        return diff / scale if scale > 0 else (0.0 if diff == 0
+                                               else float("inf"))
+    rel = max(rel(slice(0, -2)), rel(-1))
     if not (bool(torch.isfinite(g).all()) and m_err <= PARTIALS_M_ATOL
             and rel <= PARTIALS_RTOL):
         raise SystemExit(f"flash_decode_partials disagrees: {where}: m "
@@ -4103,6 +4143,543 @@ def run_phase_5d(dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 5e
+# Phase 5e, placement: one rank a visible card (NCCL), a (data, model)
+# mesh of them ((1, 1) on one card, (2, 2) on four), the port's policy,
+# sharding context and sharded decode cache on qwen2-1.5b at full width,
+# and the CEMR engine cell at the reference's default size.
+PLACE_TRAIN_STEPS = 1             # timed bf16 steps after the held float32 one
+PLACE_DECODE_STEPS = 3
+# the held train step runs in float32 (TF32 off): the sharded step sums
+# the same products in another order, across ranks
+PLACE_LOSS_RTOL, PLACE_GNORM_RTOL = 1e-5, 1e-4
+# the decode is held twice. With float32 activations over a bf16 cache
+# (the "cuda_core" route) the sharded route merges its blocks' float32
+# partials in another order than the whole-cache kernel's chunks (~1e-6
+# relative), and a cache entry written from activations that differ in
+# the last bits may round to the neighbouring bf16 (2^-9 relative):
+# PLACE_LOGITS_ATOL against the whole-cache kernel's run. With bf16
+# activations (the "tensor_core" route, as decode runs in use) every
+# layer's attention output rounds to bf16 and that noise grows over 28
+# layers (0.13 in the logits on four cards), so no fixed atol holds it:
+# the sharded run's logits must be at most PLACE_BF16_RATIO times as far
+# from the plain attention's bf16 run as the whole-cache kernel's run is
+# (phase 2's rule), or within PLACE_LOGITS_ATOL of it. Each partials and
+# merge call of that run is held against its plain version on its own
+# inputs.
+PLACE_LOGITS_ATOL = 5e-3
+PLACE_BF16_RATIO = 2.0
+ENGINE_CELL = {"frontier_rows": 65_536, "space": 262_144, "k_bwd": 3}
+PLACE_TIMEOUT_S = 900
+DRYRUN_TIMEOUT_S = 400            # each dry run; qwen2's traced in ~190 s
+
+
+def _place_model(n: int) -> int:
+    """The model axis of n ranks: 2 when n is a multiple of 4, else 1."""
+    return 2 if n % 4 == 0 else 1
+
+
+def _train_step_held(bundle, mesh, batch, dev) -> dict:
+    """One float32 train_4k step of a fresh model from seed 0 on `batch`
+    (then PLACE_TRAIN_STEPS bf16 steps, the last timed): undistributed
+    with `mesh` None, else distributed by the policy in its sharding
+    context. Returns losses, gnorms, the timed ms and wi's shapes."""
+    from repro_torch.distributed import policy
+    from repro_torch.distributed.sharding import sharding_ctx, to_placements
+    from torch.distributed.tensor import distribute_tensor
+    model = bundle.init_fn(0)
+    tokens = batch["tokens"]
+    ctx = contextlib.nullcontext
+    if mesh is not None:
+        policy.distribute_model(model, bundle.cfg, mesh)
+        spec = policy.batch_pspecs("lm", "train", mesh,
+                                   batch=tokens.shape[0])["tokens"]
+        tokens = distribute_tensor(tokens, mesh, to_placements(spec, mesh),
+                                   src_data_rank=None)
+        rules = policy.activation_rules(bundle.cfg, mesh, "train",
+                                        batch=tokens.shape[0])
+        ctx = functools.partial(sharding_ctx, mesh, rules)
+    state = bundle.optimizer.init(dict(model.named_parameters()))
+    out = {"loss": [], "gnorm": [], "ms": []}
+    for i in range(1 + PLACE_TRAIN_STEPS):
+        dtype = torch.float32 if i == 0 else torch.bfloat16
+        sync(dev)
+        t0 = time.perf_counter()
+        with ctx():
+            _, state, m = bundle.steps["train"](model, state,
+                                                {"tokens": tokens},
+                                                dtype=dtype)
+        out["loss"].append(float(m["loss"]))
+        out["gnorm"].append(float(m["gnorm"]))
+        sync(dev)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+    wi = model.blocks[0].ffn.wi.w
+    out["wi_shape"] = list(wi.shape)
+    from torch.distributed.tensor import DTensor
+    local = wi.to_local() if isinstance(wi, DTensor) else wi
+    out["wi_local_shape"] = list(local.shape)
+    del model, state
+    return out
+
+
+def merge_agrees(got, want, where: str) -> float:
+    """flash_decode_merge's output against its plain version's: finite,
+    and each element within FD_TOL's rtol of its row's largest magnitude
+    (a decode over caches that are zero but for a few rows gives small
+    outputs, which an absolute tolerance would not hold). Returns the
+    largest absolute difference; raises SystemExit otherwise."""
+    rtol = FD_TOL[want.dtype][1]
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    scale = want.abs().amax(-1, keepdim=True)
+    if not (bool(torch.isfinite(got).all())
+            and bool((diff <= rtol * scale).all())):
+        raise SystemExit(f"flash_decode_merge disagrees: {where} "
+                         f"max_abs_err={float(diff.max())}")
+    return float(diff.max())
+
+
+def held_sharded_decode(ref, run) -> dict:
+    """Runs `run()` with every `flash_decode_partials` and
+    `flash_decode_merge` call of the sharded decode route
+    (`nn.attention`'s names) held against its plain version on that
+    call's own inputs. Returns the calls held and the largest difference
+    of each kernel."""
+    from repro_torch.nn import attention
+    orig = attention.flash_decode_partials, attention.flash_decode_merge
+    held = {"calls": 0, "partials_max_abs_err": 0.0,
+            "merge_max_abs_err": 0.0}
+
+    def partials(q, k, v, lengths, offset):
+        got = orig[0](q, k, v, lengths, offset)
+        err = partials_agree(
+            got, ref.flash_decode_partials_ref(q, k, v, lengths, offset),
+            f"sharded decode call {held['calls']}, block "
+            f"{tuple(k.shape)} at {offset}")
+        held["partials_max_abs_err"] = max(held["partials_max_abs_err"], err)
+        return got
+
+    def merge(parts, dtype):
+        got = orig[1](parts, dtype)
+        err = merge_agrees(got, ref.flash_decode_merge_ref(parts, dtype),
+                           f"sharded decode call {held['calls']}, "
+                           f"{tuple(parts.shape)}")
+        held["merge_max_abs_err"] = max(held["merge_max_abs_err"], err)
+        held["calls"] += 1
+        return got
+
+    attention.flash_decode_partials, attention.flash_decode_merge = \
+        partials, merge
+    try:
+        run()
+    finally:
+        attention.flash_decode_partials, attention.flash_decode_merge = orig
+    return held
+
+
+def _decode_held(bundle, model, mesh, inputs, seq: int, dev) -> dict:
+    """PLACE_DECODE_STEPS decode steps from zero caches of `seq` positions,
+    each step's tokens the float32 whole-cache run's argmax; the model's
+    weights are float32, the caches bf16. Float32 activations: the
+    whole-cache run (plain caches, flash_decode), then the phase's main
+    path, the run whose caches are DTensors placed by `cache_bsnd` in the
+    decode rules' sharding context (each rank's flash_decode_partials,
+    the gather, flash_decode_merge), its launches counted. bf16
+    activations: the plain attention's and the kernel's whole-cache runs,
+    then the sharded run with each partials and merge call held
+    (`held_sharded_decode`). Returns the logits differences a step, the
+    sharded run's ms and launches and layer 0's timing."""
+    from repro_torch.distributed import policy
+    from repro_torch.distributed.sharding import full, sharding_ctx
+    from repro_torch.kernels import bitmap_intersect as bi
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    b = inputs["token"].shape[0]
+    rules = policy.activation_rules(bundle.cfg, mesh, "decode", batch=b)
+    step = bundle.steps["decode"]
+    feeds = [dict(inputs)]
+
+    def run(dtype, *, placed=False, ms=None, keep=False, **kw):
+        ctx = (functools.partial(sharding_ctx, mesh, rules) if placed
+               else contextlib.nullcontext)
+        with ctx():
+            caches = bundle.init_caches(b, seq)
+        out = []
+        for i in range(PLACE_DECODE_STEPS):
+            sync(dev)
+            t0 = time.perf_counter()
+            with ctx():
+                logits, caches = step(model, caches, feeds[i], dtype=dtype,
+                                      **kw)
+            logits = full(logits).float()
+            sync(dev)
+            if ms is not None:
+                ms.append((time.perf_counter() - t0) * 1e3)
+            if len(feeds) == i + 1:
+                feeds.append({"token": torch.argmax(logits, -1)
+                              .to(torch.int32),
+                              "lengths": feeds[i]["lengths"] + 1})
+            out.append(logits)
+        if keep:
+            return out, caches
+        del caches
+        release(dev)
+        return out
+
+    def errs(got, want):
+        return [float((g - w).abs().max()) for g, w in zip(got, want)]
+
+    want = run(torch.float32)
+    reset_kernel_launches(bi, fd)
+    ms = []
+    got, caches = run(torch.float32, placed=True, ms=ms, keep=True)
+    launches = kernel_launch_counts(bi, fd)
+    placements = [str(p) for p in caches["k"].placements]
+    layer = time_sharded_layer(bundle.cfg, caches, feeds[-1]["lengths"],
+                               dev) if dev.type == "cuda" else None
+    del caches
+    release(dev)
+    out = {"batch": b, "seq": seq, "cache_placements": placements,
+           "max_abs_err": errs(got, want), "ms": ms, "launches": launches,
+           "layer": layer}
+    plain = run(torch.bfloat16, use_kernel=False)
+    whole = run(torch.bfloat16)
+    placed = []
+    held = held_sharded_decode(ref, lambda: placed.extend(
+        run(torch.bfloat16, placed=True)))
+    out["bf16"] = {"whole_kernel_vs_plain": errs(whole, plain),
+                   "sharded_vs_plain": errs(placed, plain),
+                   "sharded_vs_whole_kernel": errs(placed, whole),
+                   "held": held}
+    return out
+
+
+def time_sharded_layer(cfg, caches, lengths, dev) -> dict:
+    """Layer 0 of a placed decode cache, by CUDA events (`median_ms`;
+    every rank times in step, the gathers being collectives): the
+    sharded route (the new row's write, `flash_decode_partials` on this
+    rank's block, the gather, `flash_decode_merge`) against
+    `flash_decode` over the layer's whole cache. Seeded q and new rows,
+    bf16."""
+    from repro_torch.distributed.sharding import full
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.nn.attention import sharded_gqa_decode
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b = lengths.shape[0]
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    q = draw(b, cfg.n_heads, cfg.head_dim)
+    k_new, v_new = (draw(b, cfg.n_kv_heads, cfg.head_dim) for _ in "kv")
+    kd, vd = caches["k"][0], caches["v"][0]
+    k_whole, v_whole = full(kd), full(vd)
+    whole = median_ms(lambda: fd.flash_decode(q, k_whole, v_whole,
+                                              lengths + 1))
+    placed = median_ms(lambda: sharded_gqa_decode(q, k_new, v_new, kd, vd,
+                                                  lengths, like=q))
+    return {"flash_decode_whole_ms": whole, "sharded_ms": placed,
+            "local_cache": list(kd.to_local().shape),
+            "whole_cache": list(kd.shape)}
+
+
+def int_err(got, want) -> int:
+    """The largest |got - want| of two integer tensors, 0 when equal."""
+    ne = got != want
+    if not bool(ne.any()):
+        return 0
+    return int((got[ne].long() - want[ne].long()).abs().max())
+
+
+def _engine_held(mesh, dev, cell: dict) -> dict:
+    """The engine cell on `mesh`: seeded tables and rows, each rank's
+    bitmap_intersect on its local shards and the popcount all-reduce over
+    model (`dryrun.engine_extend`, launches counted), held bit for bit
+    against the plain version (`bitmap_intersect_ref`) and against
+    bitmap_intersect, each over the whole tables on this card."""
+    from repro_torch.kernels import bitmap_intersect as bi
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    from repro_torch.launch import dryrun
+    tables, idxs = dryrun.engine_inputs(mesh, seed=7, device=dev, **cell)
+    reset_kernel_launches(bi, fd)
+    sync(dev)
+    t0 = time.perf_counter()
+    r, pop = dryrun.engine_extend(tables, idxs)
+    sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = kernel_launch_counts(bi, fd)
+    r, pop = r.full_tensor(), pop.full_tensor().reshape(-1)
+    whole = [t.full_tensor() for t in tables]
+    idx_whole = idxs.full_tensor()
+    want_r, want_pop = ref.bitmap_intersect_ref(whole, idx_whole)
+    err = max(int_err(r, want_r), int_err(pop, want_pop.reshape(-1)))
+    del want_r, want_pop
+    got_r, got_pop = bi.bitmap_intersect(whole, idx_whole)
+    same_kernel = bool(torch.equal(r, got_r)) and bool(
+        torch.equal(pop, got_pop.reshape(-1)))
+    out = {"tables": [list(t.shape) for t in tables],
+           "local_tables": [list(t.to_local().shape) for t in tables],
+           "rows": list(idxs.shape), "max_abs_err": err,
+           "equals_whole_kernel": same_kernel,
+           "bit_identical": err == 0 and same_kernel, "ms": ms,
+           "launches": launches}
+    del whole, r, got_r
+    if dev.type == "cuda":
+        out["timing"] = time_engine_shard(bi, [t.to_local() for t in tables],
+                                          idxs.to_local())
+    del tables
+    return out
+
+
+def time_engine_shard(bi, tables, idxs) -> dict:
+    """bitmap_intersect on this rank's shards of the engine cell (CUDA
+    events, `median_ms`) beside its plain version; the bound is the bytes
+    the call must move (each table row it gathers, R, idxs and pop, once)
+    over the card's HBM rate."""
+    from repro_torch.kernels import ref
+    t, k = idxs.shape
+    w = tables[0].shape[1]
+    moved = 4 * (t * k * w + t * w + t * k + t)
+    return {"ms": median_ms(lambda: bi.bitmap_intersect(tables, idxs)),
+            "plain_ms": median_ms(lambda: ref.bitmap_intersect_ref(tables,
+                                                                   idxs)),
+            "bytes": moved, "bound_ms": moved / hw()["hbm_bw"] * 1e3,
+            "shape": {"T": t, "k": k, "W": w, "S": tables[0].shape[0]}}
+
+
+def engine_kernel_row(place: dict) -> dict:
+    """The kernels line's row of `bitmap_intersect`, from phase 5e's engine
+    cell: its launches on the phase's path, its agreement and its times
+    at the rank's shard."""
+    eng = place["engine"]
+    tm = eng["timing"]
+    return {"name": "bitmap_intersect", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bitmap_intersect.cu",
+            "replaces": "src/repro/kernels/bitmap_intersect.py:88",
+            "launches": eng["launches"]["bitmap_intersect"],
+            "max_abs_err": eng["max_abs_err"],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "shape": tm["shape"], "bytes": tm["bytes"],
+            "path": "phase 5e engine cell, a rank's shard"}
+
+
+def placement_rank(rank: int, world: int, port: int, out_dir: str,
+                   reduced: bool = False) -> None:
+    """One rank of phase 5e (spawned: NCCL on card `rank`; with
+    `reduced`, gloo on the CPU at the reduced config, for a rehearsal).
+    Writes its results to out_dir/rank<rank>.json; any failed check
+    raises, which fails the spawn."""
+    import datetime
+    import torch.distributed as dist
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.config import LM_SHAPES
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.api import build_bundle
+    from repro_torch.train import trainer
+    cpu = reduced
+    if not cpu:
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cpu") if cpu else torch.device("cuda", rank)
+    dist.init_process_group("gloo" if cpu else "nccl",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(
+                                seconds=PLACE_TIMEOUT_S))
+    try:
+        model_axis = _place_model(world)
+        mesh = make_local_mesh(world // model_axis, model_axis,
+                               device=dev.type)
+        res = {"rank": rank, "mesh": dict(zip(mesh.mesh_dim_names,
+                                              mesh.shape))}
+        t0 = time.perf_counter()
+        bundle = build_bundle(LM_ARCH, reduced=reduced, device=dev)
+        shape = LM_SHAPES[TRAIN_SHAPE]
+        seq = shape["seq_len"] if not reduced else 64
+        batch = trainer.lm_token_stream(bundle.cfg.vocab, TRAIN_BATCH, seq,
+                                        cycle=1, device=dev, rank=0)(0)
+        plain = _train_step_held(bundle, None, batch, dev)
+        release(dev)
+        placed = _train_step_held(bundle, mesh, batch, dev)
+        release(dev)
+        for key, tol in (("loss", PLACE_LOSS_RTOL),
+                         ("gnorm", PLACE_GNORM_RTOL)):
+            a, b = placed[key][0], plain[key][0]
+            if not abs(a - b) <= tol * abs(b):
+                raise SystemExit(f"rank {rank}: placed train step {key} "
+                                 f"{a} against {b}, rtol {tol}")
+        if model_axis > 1 and placed["wi_local_shape"][1] * model_axis \
+                != placed["wi_shape"][1]:
+            raise SystemExit(f"rank {rank}: wi {placed['wi_local_shape']} "
+                             f"of {placed['wi_shape']} is not sharded")
+        res["train"] = {"plain": plain, "placed": placed,
+                        "seconds": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        model = bundle.init_fn(0)
+        d_shape = LM_SHAPES[DECODE_SHAPE]
+        inputs = bundle.make_inputs(DECODE_SHAPE,
+                                    batch=DECODE_BATCH if not reduced
+                                    else 8)
+        dec = _decode_held(bundle, model, mesh, inputs,
+                           d_shape["seq_len"] if not reduced else 128, dev)
+        del model
+        release(dev)
+        if max(dec["max_abs_err"]) > PLACE_LOGITS_ATOL:
+            raise SystemExit(f"rank {rank}: sharded-cache decode logits "
+                             f"{dec['max_abs_err']} from the whole-cache "
+                             f"run, atol {PLACE_LOGITS_ATOL}")
+        b16 = dec["bf16"]
+        tol = max(PLACE_BF16_RATIO * max(b16["whole_kernel_vs_plain"]),
+                  PLACE_LOGITS_ATOL)
+        if max(b16["sharded_vs_plain"]) > tol:
+            raise SystemExit(f"rank {rank}: bf16 sharded-cache decode "
+                             f"logits {b16['sharded_vs_plain']} from the "
+                             f"plain attention's run, the whole-cache "
+                             f"kernel's {b16['whole_kernel_vs_plain']}: over "
+                             f"{tol}")
+        dec["seconds"] = time.perf_counter() - t0
+        res["decode"] = dec
+        t0 = time.perf_counter()
+        cell = ENGINE_CELL if not reduced else {
+            "frontier_rows": 1024, "space": 4096, "k_bwd": 3}
+        eng = _engine_held(mesh, dev, cell)
+        release(dev)
+        if not eng["bit_identical"]:
+            raise SystemExit(f"rank {rank}: the engine cell's R and pop "
+                             f"differ from the plain version over the whole "
+                             f"tables by {eng['max_abs_err']}, or from "
+                             f"bitmap_intersect's (equal: "
+                             f"{eng['equals_whole_kernel']})")
+        eng["seconds"] = time.perf_counter() - t0
+        res["engine"] = eng
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def release(dev) -> None:
+    import gc
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_dryruns() -> list:
+    """Phase 5e's dry runs on the host, one after the other: qwen2-1.5b x
+    train_4k on (16, 16) and the engine cell on (2, 16, 16), each in a
+    process group of its own, stopped whole after DRYRUN_TIMEOUT_S.
+    Their rows; fails unless each exits 0."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rows.json")
+        for name, args in (("qwen2-1.5b train_4k (16, 16)",
+                            ["--arch", LM_ARCH, "--shape", TRAIN_SHAPE]),
+                           ("cemr-engine (2, 16, 16)",
+                            ["--engine", "--multi-pod"])):
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                 "--out", out], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, start_new_session=True)
+            try:
+                log = proc.communicate(timeout=DRYRUN_TIMEOUT_S)[0]
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+                raise SystemExit(f"dry run {name} took over "
+                                 f"{DRYRUN_TIMEOUT_S} s")
+            if proc.returncode != 0:
+                raise SystemExit(f"dry run {name} exited {proc.returncode}:"
+                                 f"\n{log[-3000:]}")
+            with open(out) as f:
+                rows += json.load(f)
+    return rows
+
+
+def require_placement_launches(launches: dict, layers: int) -> None:
+    """Phase 5e's main path on each rank: a partials and a merge launch a
+    layer and decode step, one bitmap_intersect, no other kernel."""
+    n = layers * PLACE_DECODE_STEPS
+    want = {name: 0 for name in launches}
+    want.update({"flash_decode_partials": n, "flash_decode_merge": n,
+                 "bitmap_intersect": 1})
+    if launches != want:
+        raise SystemExit(f"phase 5e launches {launches}, want {want}")
+
+
+def run_phase_5e(card: str, *, dryruns: bool = True,
+                 world: int | None = None, reduced: bool = False) -> dict:
+    """Phase 5e, placement (see the constants above): one spawned rank a
+    visible card, then, with `dryruns`, the dry runs on the host. Returns
+    rank 0's results, the dry-run rows and the phase's launches (the
+    decode's and the engine cell's, each counted from 0)."""
+    import torch.multiprocessing as mp
+    from repro_torch.configs.registry import get_config
+    t0 = time.perf_counter()
+    if world is None:
+        world = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(placement_rank, args=(world, free_port(), tmp, reduced),
+                 nprocs=world, join=True)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    res = ranks[0]
+    res["ranks"] = world
+    res["launches"] = {k: v + res["engine"]["launches"][k]
+                       for k, v in res["decode"]["launches"].items()}
+    for r in ranks:
+        if r["decode"]["launches"] != res["decode"]["launches"] \
+                or r["engine"]["launches"] != res["engine"]["launches"]:
+            raise SystemExit(f"rank {r['rank']} launched {r['decode']} "
+                             f"{r['engine']}, rank 0 "
+                             f"{res['launches']}")
+    require_placement_launches(
+        res["launches"], get_config(LM_ARCH, reduced=reduced).n_layers)
+    tr, dec, eng = res["train"], res["decode"], res["engine"]
+    print("placement " + json.dumps(res), flush=True)
+    print(f"placement on {card}: mesh {res['mesh']} over {world} rank(s); "
+          f"train_4k batch {TRAIN_BATCH} float32 loss "
+          f"{tr['placed']['loss'][0]:.6f} against {tr['plain']['loss'][0]:.6f}"
+          f", gnorm {tr['placed']['gnorm'][0]:.6f} against "
+          f"{tr['plain']['gnorm'][0]:.6f}; bf16 step "
+          f"{tr['placed']['ms'][-1]:.1f} ms placed, "
+          f"{tr['plain']['ms'][-1]:.1f} ms plain; decode_32k batch "
+          f"{dec['batch']} cache {dec['cache_placements']} logits "
+          f"max_abs_err {max(dec['max_abs_err']):.4g} (bf16: sharded "
+          f"{max(dec['bf16']['sharded_vs_plain']):.4g}, whole-cache kernel "
+          f"{max(dec['bf16']['whole_kernel_vs_plain']):.4g} from the plain "
+          f"attention's run; {dec['bf16']['held']['calls']} partials and "
+          f"merge calls held), step "
+          f"{dec['ms'][-1]:.1f} ms, layer 0 sharded "
+          f"{(dec['layer'] or {}).get('sharded_ms')} ms against "
+          f"{(dec['layer'] or {}).get('flash_decode_whole_ms')} ms whole; "
+          f"engine cell bit-identical to the plain version, "
+          f"{eng['ms']:.1f} ms (timed {eng.get('timing')}); launches "
+          f"{res['launches']}", flush=True)
+    if dryruns:
+        res["dryrun"] = run_dryruns()
+        for row in res["dryrun"]:
+            print("dryrun " + json.dumps(row), flush=True)
+    print(f"phase 5e in {time.perf_counter() - t0:.3f} s", flush=True)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4368,6 +4945,18 @@ def main() -> int:
     for k in kernels:
         k["launches_phase_5d"] = {path: counts[k["name"]]
                                   for path, counts in rec["launches"].items()}
+    # phase 5e after everything else has freed the card: spawned ranks,
+    # then the dry runs on the host
+    place = run_phase_5e(card)
+    held = place["decode"]["bf16"]["held"]
+    held = {"flash_decode_partials": held["partials_max_abs_err"],
+            "flash_decode_merge": held["merge_max_abs_err"]}
+    for k in kernels:
+        k["launches_phase_5e"] = place["launches"][k["name"]]
+        if k["name"] in held:
+            k["max_abs_err_phase_5e"] = held[k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], held[k["name"]])
+    kernels.append(engine_kernel_row(place))
 
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.3f} s",
           flush=True)

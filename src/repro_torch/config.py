@@ -7,8 +7,10 @@ imports nothing of that package): `GNNConfig`, `RecsysConfig`,
 that the decode, prefill and train paths and `n_params` read, with the
 reference's defaults, the MoE dispatch knobs (`moe_group`, the dispatch
 group of prefill and training; `moe_pad_to`, dead expert slots) among
-them; `seq_parallel` and `unroll` come with the slices that use them
-(ROADMAP.md Queue 1). Every architecture has a module in
+them, and `seq_parallel`, which the sharding policy reads. The LM
+config has no `unroll`: the reference unrolls its layer scan only for
+the dry run's cost analysis, and the port's dry run traces eager layers
+at full depth. Every architecture has a module in
 `repro_torch/configs/` with `config()` (the published hyperparameters)
 and `reduced()` (a tiny same-family config for CPU tests);
 `configs/registry.py` resolves `--arch`.
@@ -47,6 +49,7 @@ class LMConfig:
     k_chunk: int = 1024              # flash_attention key block
     moe_group: int = 512             # MoE dispatch group size
     moe_pad_to: int = 0              # pad expert count (EP divisibility)
+    seq_parallel: bool = False       # S-sharded residual stream (Megatron-SP)
     # MLA fields
     q_lora_rank: int = 0
     kv_lora_rank: int = 0

@@ -21,6 +21,9 @@ and the `runtime` service.
 `--arch bert4rec` scores one batch of `--shape` (serve_p99 unless given:
 the reduced config's 8 histories) through the bundle's serve step, as the
 reference's recsys branch does. The GNN ids only train.
+LM decode and bert4rec scoring run under `make_local_mesh()` and the
+policy's decode or serve rules, as the reference's launcher runs them; in
+one process the mesh is (1, 1), which leaves every tensor plain.
 `--arch match` is a closed-loop batch: all queries exist up front and
 `match_many` drains them as one superbatch (`serve_match`). `--serve-loop`
 runs the always-on `MatchService` open loop instead (`serve_match_loop`):
@@ -32,6 +35,7 @@ docs/serving.md. Everything runs on the card unless given `--device cpu`.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import torch
@@ -70,12 +74,13 @@ def decode_loop(bundle: ModelBundle, model, *, batch: int,
             "ms_per_step": dt / tokens * 1e3}
 
 
-def serve_recsys(bundle: ModelBundle, shape: str) -> dict:
+def serve_recsys(bundle: ModelBundle, shape: str, *,
+                 place=lambda model: model) -> dict:
     """Score one batch of `shape`'s inputs (seed 0) through the bundle's
-    serve step, random weights from seed 0, and print the reference
-    launcher's line. Returns the top-k values and indices and the wall
-    seconds."""
-    model = bundle.init_fn(0)
+    serve step, random weights from seed 0 (given to `place`, which may
+    distribute them), and print the reference launcher's line. Returns
+    the top-k values and indices and the wall seconds."""
+    model = place(bundle.init_fn(0))
     batch = bundle.make_inputs(shape)
     t0 = time.perf_counter()
     vals, idx = bundle.steps["serve"](model, batch)
@@ -213,21 +218,53 @@ def main(argv=None) -> int:
             serve_match(args)
         return 0
     bundle = build_bundle(args.arch, reduced=True, device=args.device)
-    if bundle.family == "recsys":
-        serve_recsys(bundle, args.shape or "serve_p99")
-        return 0
-    if bundle.family != "lm":
+    if bundle.family not in ("lm", "recsys"):
         raise SystemExit(f"--arch {args.arch}: a {bundle.family} model only "
                          "trains; serve takes an LM id, bert4rec or match")
-    # weights stored in the activation dtype: the same numbers as the
-    # reference's float32 weights cast at every use
-    model = bundle.init_fn(0, dtype=torch.bfloat16)
-    res = decode_loop(bundle, model, batch=args.batch, tokens=args.tokens)
+    with _mesh_context(bundle, args) as place:
+        if bundle.family == "recsys":
+            serve_recsys(bundle, args.shape or "serve_p99", place=place)
+            return 0
+        # weights stored in the activation dtype: the same numbers as the
+        # reference's float32 weights cast at every use
+        model = place(bundle.init_fn(0, dtype=torch.bfloat16))
+        res = decode_loop(bundle, model, batch=args.batch,
+                          tokens=args.tokens)
     print(f"decoded {args.tokens} tokens × batch {args.batch} on "
           f"{bundle.device} in {res['seconds']:.2f}s "
           f"({res['tokens_per_s']:.1f} tok/s)")
     print("sample:", res["tokens"][:10, 0].tolist())
     return 0
+
+
+@contextlib.contextmanager
+def _mesh_context(bundle: ModelBundle, args):
+    """The reference launcher's `make_local_mesh()` and sharding context
+    (the decode rules for an LM, the serve rules for bert4rec), around the
+    serve. Yields place(model): the model distributed by the policy. A
+    mesh of one device (one process: a (1, 1) mesh over a group of one)
+    distributes nothing and installs no context, so the single-card loop
+    launches what it launches without a mesh. A group this call started
+    ends with it."""
+    import torch.distributed as dist
+    from repro_torch.distributed import policy
+    from repro_torch.distributed.sharding import sharding_ctx
+    from repro_torch.launch.mesh import make_local_mesh
+    own = not dist.is_initialized()
+    mesh = make_local_mesh(device=bundle.device)
+    try:
+        if mesh.size() == 1:
+            yield lambda model: model
+            return
+        kind = "decode" if bundle.family == "lm" else "serve"
+        rules = policy.activation_rules(bundle.cfg, mesh, kind,
+                                        batch=args.batch)
+        with sharding_ctx(mesh, rules):
+            yield lambda model: policy.distribute_model(model, bundle.cfg,
+                                                        mesh)
+    finally:
+        if own:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -32,11 +32,13 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES
 from repro_torch.configs.registry import get_config
 from repro_torch.data import graph_data, recsys_synth
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import full, reduce_to_placements
 from repro_torch.models import bert4rec
 from repro_torch.models.gnn_models import NequIP, gnn_init
 from repro_torch.nn import transformer as T
@@ -92,10 +94,12 @@ def _train_update(opt: AdamW, model, opt_state, loss_fn):
     # weights feed no readout) gets a zero gradient, as in the reference
     grads = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True, materialize_grads=True)
+    grads = reduce_to_placements(grads, params.values())
     _, opt_state, gnorm = opt.update(dict(zip(params, grads)), opt_state,
                                      params)
-    return model, opt_state, {"loss": loss.detach(), "gnorm": gnorm,
-                              **{k: v.detach() for k, v in metrics.items()}}
+    return model, opt_state, {
+        "loss": full(loss.detach()), "gnorm": gnorm,
+        **{k: full(v.detach()) for k, v in metrics.items()}}
 
 
 # =============================================================== LM bundles
@@ -115,24 +119,27 @@ def _lm_bundle(arch: str, cfg, reduced: bool, dev) -> ModelBundle:
 
     def train_step(model, opt_state, batch, *, dtype=torch.bfloat16):
         """Microbatched (gradient-accumulation) train step: `grad_accum`
-        microbatches of consecutive rows when the batch divides by it, else
-        one; gradients summed in a float32 buffer and divided by their
-        count, the loss averaged, then one AdamW update. Returns (model,
-        opt_state, {"loss", "gnorm"})."""
+        microbatches of consecutive rows when the batch (on a mesh, each
+        rank's rows) divides by it, else one; gradients summed in a
+        float32 buffer and divided by their count, the loss averaged, then
+        one AdamW update. Returns (model, opt_state, {"loss", "gnorm"})."""
         tokens = batch["tokens"]
-        b = tokens.shape[0]
+        # a rank splits its own rows (all of them without a mesh)
+        b = (tokens.to_local() if isinstance(tokens, DTensor)
+             else tokens).shape[0]
         a = cfg.grad_accum if b % max(cfg.grad_accum, 1) == 0 else 1
         params = dict(model.named_parameters())
         leaves = list(params.values())
         gacc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        for tok in tokens.reshape(a, b // a, tokens.shape[1]):
+        for tok in _microbatches(tokens, a):
             loss, _ = T.lm_loss(model, tok, dtype=dtype)
             # the gradients live only for this statement: the update
-            # below runs with the accumulation buffer alone
-            torch._foreach_add_(gacc, [g.float() for g in torch.autograd.grad(
-                loss, leaves)])
-            loss_sum += loss.detach()
+            # below runs with the accumulation buffer alone (on a mesh,
+            # each reduced to its parameter's placements first)
+            torch._foreach_add_(gacc, [g.float() for g in reduce_to_placements(
+                torch.autograd.grad(loss, leaves), leaves)])
+            loss_sum += full(loss.detach())
         torch._foreach_div_(gacc, a)
         _, opt_state, gnorm = opt.update(dict(zip(params, gacc)), opt_state,
                                          params)
@@ -193,6 +200,24 @@ def _lm_bundle(arch: str, cfg, reduced: bool, dev) -> ModelBundle:
                               "decode": decode_step},
                        input_specs=input_specs, make_inputs=make_inputs,
                        model_flops=model_flops)
+
+
+def _microbatches(tokens: torch.Tensor, a: int) -> list:
+    """`a` microbatches of consecutive rows of `tokens` (B, S). A DTensor
+    batch sharded over data splits on each rank's own rows (the local
+    block's consecutive rows; with one data rank, the reference's split),
+    so no row moves between ranks."""
+    if a == 1:
+        return [tokens]
+    if isinstance(tokens, DTensor):
+        # microbatches of equal size: their mean gradient is the whole
+        # batch's, whichever rows each takes
+        local = tokens.to_local()
+        return [DTensor.from_local(t, tokens.device_mesh, tokens.placements,
+                                   run_check=False)
+                for t in local.reshape(a, local.shape[0] // a,
+                                       local.shape[1])]
+    return list(tokens.reshape(a, tokens.shape[0] // a, tokens.shape[1]))
 
 
 def _to_device(arrays: dict, dev) -> dict:

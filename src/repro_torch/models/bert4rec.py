@@ -11,19 +11,21 @@ The item table is the hot object (n_items = 10⁶ at full size): the loss
 takes logits only at the M ≪ S masked positions, in batch chunks of
 `cfg.batch_chunk` rows, each under checkpoint when gradients are on (the
 reference's `jax.checkpoint` under `scan`), so one (chunk · M, n_items)
-float32 slab is live at a time. Its gold logit is a gather; the reference
-takes it with a one-hot einsum, whose other terms are exact zeros (the
-same value). `score_next` scores the last position against the whole
-table in one product and takes its top-k with `iterative_top_k`: k passes
-of (max, mask), a tie going to the lower item, as `jax.lax.top_k` orders
-them (`torch.topk` promises no order among ties).
+float32 slab is live at a time. Its gold logit is `core.gold_logit`. Under
+a mesh the logits are placed by the reference's `logits_btv`, `logits_bv`
+and `parts_bpv` rules. `score_next` scores the last position against the
+whole table in one product and takes its top-k with `iterative_top_k`: k
+passes of (max, mask), a tie going to the lower item, as `jax.lax.top_k`
+orders them (`torch.topk` promises no order among ties).
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import LMConfig, RecsysConfig
+from repro_torch.distributed.sharding import constrain, current_rules, full
 from repro_torch.nn import core, transformer as T
 
 __all__ = ["bert4rec_encoder_cfg", "init", "cloze_loss", "iterative_top_k",
@@ -58,9 +60,8 @@ def _cloze_chunk(table: torch.Tensor, hc: torch.Tensor, tc: torch.Tensor,
                  vc: torch.Tensor) -> torch.Tensor:
     """Summed cross entropy of one batch chunk's valid masked positions,
     from float32 logits."""
-    logits = (hc @ table.to(hc.dtype).T).float()
-    gold = logits.gather(-1, tc.long()[..., None])[..., 0]
-    nll = torch.logsumexp(logits, dim=-1) - gold
+    logits = constrain(hc @ table.to(hc.dtype).T, "logits_btv").float()
+    nll = torch.logsumexp(logits, dim=-1) - core.gold_logit(logits, tc)
     return torch.where(vc, nll, torch.zeros_like(nll)).sum()
 
 
@@ -111,23 +112,54 @@ def two_stage_top_k(scores: torch.Tensor, k: int, n_parts: int):
     the vocab)."""
     b, v = scores.shape
     if n_parts <= 1 or v % n_parts:
-        return iterative_top_k(scores, k)
+        return iterative_top_k(full(scores), k)
+    if isinstance(scores, DTensor):
+        return _sharded_top_k(constrain(scores.reshape(b, n_parts,
+                                                       v // n_parts),
+                                        "parts_bpv"), k)
     lv, li = iterative_top_k(scores.reshape(b, n_parts, v // n_parts), k)
-    gi = (torch.arange(n_parts, dtype=li.dtype, device=li.device)[None, :,
-                                                                  None]
-          * (v // n_parts) + li).reshape(b, n_parts * k)
-    fv, fi = iterative_top_k(lv.reshape(b, n_parts * k), k)
+    return _merge_parts(lv, li, v // n_parts, k)
+
+
+def _merge_parts(lv, li, part: int, k: int):
+    """The top-k of parts' local top-k (B, n, k), part i holding items
+    [i·part, (i + 1)·part)."""
+    b, n, _ = lv.shape
+    gi = (torch.arange(n, dtype=li.dtype, device=li.device)[None, :, None]
+          * part + li).reshape(b, n * k)
+    fv, fi = iterative_top_k(lv.reshape(b, n * k), k)
     return fv, gi.gather(1, fi.long())
+
+
+def _sharded_top_k(sh: DTensor, k: int):
+    """`two_stage_top_k` on a (B, parts, V / parts) DTensor: each rank's
+    parts' top-k on its own shard (as GSPMD partitions the reference's
+    reshape), the (B, parts, k) values and indices all-gathered, and the
+    merge; plain (values, indices) of the whole batch."""
+    from torch.distributed.tensor import Replicate
+    mesh, pl = sh.device_mesh, list(sh.placements)
+    lv, li = iterative_top_k(sh.to_local(), k)
+    lv, li = (DTensor.from_local(t, mesh, pl, run_check=False)
+              .redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+              for t in (lv, li))
+    return _merge_parts(lv, li, sh.shape[2], k)
 
 
 @torch.no_grad()
 def score_next(model: T.LM, ids: torch.Tensor, cfg: RecsysConfig, *,
-               dtype=torch.float32, top_k: int = 10, n_parts: int = 1):
+               dtype=torch.float32, top_k: int = 10,
+               n_parts: int | None = None):
     """Online inference: the last position's hidden state against the whole
-    item table, (values, indices) of its top_k items. One device is one
-    part, as the reference has it without a mesh."""
+    item table, (values, indices) of its top_k items. `n_parts` None takes
+    the `model` axis of the current sharding context as the reference does
+    (one part without a mesh); on a mesh each rank's top-k runs on its own
+    vocab shard and the result is the whole batch's, plain."""
     h = _encode(model, ids, dtype)[:, -1]
-    scores = h @ model.embed.table.to(h.dtype).T
+    scores = constrain(h @ model.embed.table.to(h.dtype).T, "logits_bv")
+    if n_parts is None:
+        ctx = current_rules()
+        n_parts = 1 if ctx is None else dict(zip(
+            ctx[0].mesh_dim_names, ctx[0].shape)).get("model", 1)
     return two_stage_top_k(scores, top_k, n_parts)
 
 

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.nn import core, equivariant as eq, gnn
 
 __all__ = ["GatedGCN", "NequIP", "EquiformerV2", "DimeNet", "GNN_MODELS",
@@ -173,15 +174,17 @@ class NequIP(nn.Module):
                 # contract SH with the Gaunt tensor first: (E,m,o) stays small
                 sh_g = torch.einsum("en,mno->emo", sh[l2],
                                     _gaunt(l1, l2, l3, dev))
-                msg = torch.einsum("ecm,emo->eco", feats[l1][src],
-                                   sh_g) * w[:, :, None]
-                agg = core.segment_sum(
-                    torch.where(emask, msg, torch.zeros_like(msg)), dst, n)
+                msg = constrain(torch.einsum("ecm,emo->eco", feats[l1][src],
+                                             sh_g) * w[:, :, None],
+                                "gnn_irreps")
+                agg = constrain(core.segment_sum(
+                    torch.where(emask, msg, torch.zeros_like(msg)), dst, n),
+                    "gnn_irreps")
                 new[l3] = new[l3] + _dense_lastdim(lp["mix"][str(l3)], agg)
             out = {0: nn.functional.silu(new[0])}
             for l in range(1, lm + 1):
                 out[l] = new[l] * torch.sigmoid(new[0][..., :1])
-            return out
+            return {l: constrain(f, "gnn_irreps") for l, f in out.items()}
 
         feats = _irreps(core.embed(self.embed, batch["species"],
                                    self.embed.table.dtype)[:, :, None], lm)
@@ -230,9 +233,11 @@ class EquiformerV2(nn.Module):
         edge_mask = batch["edge_mask"]
 
         def layer_fn(lp, feats):
-            edge_feats = {l: f[src] for l, f in feats.items()}
+            edge_feats = {l: constrain(f[src], "gnn_irreps")
+                          for l, f in feats.items()}
             rot = eq.rotate_to_edge_frame(edge_feats, alpha_ang, beta_ang, lm)
-            mixed = eq.so2_conv(lp["so2"], rot, lm, c)
+            mixed = {l: constrain(f, "gnn_irreps")
+                     for l, f in eq.so2_conv(lp["so2"], rot, lm, c).items()}
             # gated nonlinearity: scalars gate all l>0
             gate = torch.sigmoid(mixed[0][..., 0])             # (E, C)
             mixed = {l: (nn.functional.silu(f) if l == 0
@@ -250,7 +255,7 @@ class EquiformerV2(nn.Module):
                 agg = core.segment_sum(torch.where(
                     edge_mask[:, None, None], b, torch.zeros_like(b)), dst, n)
                 out[l] = f + _dense_lastdim(lp["out"][str(l)], agg)
-            return out
+            return {l: constrain(f, "gnn_irreps") for l, f in out.items()}
 
         feats = _irreps(core.embed(self.embed, batch["species"],
                                    self.embed.table.dtype)[:, :, None], lm)
@@ -326,6 +331,7 @@ class DimeNet(nn.Module):
         sbf = (eq.bessel_basis(r[t_kj], n_rbf, cutoff)[:, :, None]
                * ang[:, None, :]).reshape(-1, n_rbf * n_sph)     # (T, ...)
         e_count = m.shape[0]
+        m = constrain(m, "gnn_nodes")
 
         def block_fn(bp, m):
             m_kj = core.mlp(bp.msg_mlp, m)[t_kj]                # (T, C)
@@ -333,10 +339,13 @@ class DimeNet(nn.Module):
             inter = torch.einsum(
                 "tbd,tb->td", torch.einsum("tc,bcd->tbd", m_kj, bp.bilinear),
                 w_s)
-            inter = torch.where(t_mask[:, None], inter,
-                                torch.zeros_like(inter))
+            inter = constrain(torch.where(t_mask[:, None], inter,
+                                          torch.zeros_like(inter)),
+                              "gnn_nodes")
             agg = core.segment_sum(inter, t_ji, e_count)
-            return m + core.mlp(bp.update, agg * core.dense(bp.rbf_w, rbf))
+            return constrain(m + core.mlp(bp.update,
+                                          agg * core.dense(bp.rbf_w, rbf)),
+                             "gnn_nodes")
 
         for bp in self.blocks:
             m = _remat(block_fn, bp, m)

@@ -28,11 +28,14 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.distributed.sharding import constrain
 
 __all__ = ["normal_init", "uniform_init", "Dense", "dense", "RMSNorm",
            "rmsnorm", "LayerNorm", "layernorm", "rope_angles", "apply_rope",
            "SwiGLU", "swiglu", "gelu", "MLP", "mlp", "Embedding", "embed",
-           "embedding_bag", "segment_sum", "segment_max"]
+           "embedding_bag", "gold_logit", "segment_sum", "segment_max"]
 
 
 # ----------------------------------------------------------------- init
@@ -198,8 +201,32 @@ class Embedding(nn.Module):
 
 def embed(p: Embedding, ids: torch.Tensor, dtype) -> torch.Tensor:
     """Rows of the table in dtype (gathered, then cast: the same values as
-    the reference's cast-then-gather)."""
-    return p.table[ids.long()].to(dtype)
+    the reference's cast-then-gather), by `embedding`, whose backward
+    DTensor places in every torch release (an indexing backward it places
+    only in some)."""
+    out = nn.functional.embedding(ids.long(), p.table)
+    if isinstance(out, DTensor):
+        # a vocab-sharded table gives each rank its own rows' part:
+        # reduce it before anything else reads it
+        pl = [Replicate() if isinstance(q, Partial) else q
+              for q in out.placements]
+        if pl != list(out.placements):
+            out = out.redistribute(out.device_mesh, pl)
+    return out.to(dtype)
+
+
+def gold_logit(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """logits[..., targets] (the cross entropy's gold term). On plain
+    tensors a gather. On a mesh (DTensor logits) the reference's one-hot
+    product, constrained as the logits (`logits_btv`), whose other terms
+    are exact zeros (the same value): a gather along the tensor-parallel
+    vocab axis would all-gather the logits."""
+    if not isinstance(logits, DTensor):
+        return logits.gather(-1, targets.long()[..., None])[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    onehot = constrain((targets.long()[..., None] == vocab)
+                       .to(logits.dtype), "logits_btv")
+    return (logits * onehot).sum(-1)
 
 
 def segment_sum(values: torch.Tensor, ids: torch.Tensor,
@@ -216,10 +243,33 @@ def segment_max(values: torch.Tensor, ids: torch.Tensor,
     an empty segment (`jax.ops.segment_max`; a torch `scatter_reduce("amax",
     include_self=False)` would keep the initial value, so it starts from
     -inf)."""
+    if isinstance(values, DTensor):
+        return _sharded_segment_max(values, ids, num_segments)
     out = values.new_full((num_segments,) + values.shape[1:], -torch.inf)
     idx = ids.long().reshape((-1,) + (1,) * (values.dim() - 1))
     return out.scatter_reduce(0, idx.expand_as(values), values, "amax",
                               include_self=False)
+
+
+def _sharded_segment_max(values, ids, num_segments: int):
+    """`segment_max` of DTensor values whose first axis (edges) is sharded
+    like `ids` and whose other axes are whole: each rank's segment max over
+    its own edges, then the max over the ranks (an all-reduce), as GSPMD
+    partitions the reference's segment_max. DTensor has no sharding rule
+    for `scatter_reduce`."""
+    mesh = values.device_mesh
+    if not isinstance(ids, DTensor) or ids.placements != values.placements \
+            or any(isinstance(p, Shard) and p.dim != 0
+                   for p in values.placements) \
+            or any(isinstance(p, Partial) for p in values.placements):
+        raise ValueError(f"segment_max over values {values.placements} and "
+                         f"ids {getattr(ids, 'placements', 'plain')}: both "
+                         "split along their first axis alike")
+    local = segment_max(values.to_local(), ids.to_local(), num_segments)
+    pl = [Partial("max") if isinstance(p, Shard) else Replicate()
+          for p in values.placements]
+    return DTensor.from_local(local, mesh, pl, run_check=False).redistribute(
+        mesh, [Replicate()] * mesh.ndim)
 
 
 def embedding_bag(p: Embedding, ids: torch.Tensor, segment_ids: torch.Tensor,

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import constrain
 from . import core
 
 __all__ = ["scatter_sum", "scatter_mean", "segment_softmax",
@@ -78,4 +79,4 @@ def gatedgcn_layer(p: GatedGCNLayer, h, e, src, dst, edge_mask,
     agg = scatter_sum(msg, dst, n_nodes, edge_mask) / denom
     h_out = h + torch.relu(core.layernorm(
         p.ln_h, core.dense(p.U, h) + agg))
-    return h_out, e_out
+    return constrain(h_out, "gnn_nodes"), e_out

@@ -29,6 +29,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import LMConfig
+from repro_torch.distributed.sharding import (P, constrain, current_rules,
+                                             divides, to_placements)
 from . import attention as attn
 from . import core
 from .moe import MoE, moe_ffn
@@ -93,21 +95,57 @@ def lm_init(cfg: LMConfig, *, seed: int = 0, device,
 def lm_init_caches(cfg: LMConfig, batch: int, max_len: int, *,
                    dtype=torch.bfloat16, device) -> dict:
     """Zero caches stacked over layers: GQA {"k", "v"} (L, B, S, Hkv, D);
-    MLA {"c_kv" (L, B, S, r), "k_rope" (L, B, S, dr)}."""
+    MLA {"c_kv" (L, B, S, r), "k_rope" (L, B, S, dr)}.
+
+    Under a sharding context with a `cache_bsnd` (GQA) or `mla_cache`
+    (MLA) rule that divides the cache, the caches are DTensors placed by
+    it, each rank allocating its own block only. The reference constrains
+    the cache after each functional write; here the cache is written in
+    place, so it is placed once, when it is made. An MLA cache keeps the
+    rule's batch entry only (its rows split over data, S whole), and its
+    decode stays the plain step on each rank's rows."""
     if cfg.attention == "mla":
         one = {"c_kv": cfg.kv_lora_rank, "k_rope": cfg.qk_rope_head_dim}
-        return {name: torch.zeros((cfg.n_layers, batch, max_len, width),
-                                  dtype=dtype, device=device)
-                for name, width in one.items()}
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {name: torch.zeros(shape, dtype=dtype, device=device)
-            for name in ("k", "v")}
+        shapes = {name: (cfg.n_layers, batch, max_len, width)
+                  for name, width in one.items()}
+        rule = _cache_rule("mla_cache", keep_seq=False)
+    else:
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        shapes = {"k": shape, "v": shape}
+        rule = _cache_rule("cache_bsnd", keep_seq=True)
+    return {name: _zeros(shp, rule, dtype, device)
+            for name, shp in shapes.items()}
+
+
+def _cache_rule(name: str, *, keep_seq: bool):
+    """(mesh, the spec of a layer-stacked cache) from the current sharding
+    context's rule `name`, or None."""
+    ctx = current_rules()
+    if ctx is None or ctx[1].get(name) is None:
+        return None
+    mesh, rules = ctx
+    spec = tuple(rules[name])
+    if not keep_seq:
+        spec = spec[:1] + (None,) * (len(spec) - 1)
+    return mesh, P(None, *spec)
+
+
+def _zeros(shape, rule, dtype, device):
+    if rule is not None:
+        mesh, spec = rule
+        if divides(shape, spec, mesh):
+            from torch.distributed.tensor import zeros
+            return zeros(shape, dtype=dtype, device_mesh=mesh,
+                         placements=to_placements(spec, mesh))
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 def _logits(model: LM, h: torch.Tensor) -> torch.Tensor:
     if model.head is None:
-        return h @ model.embed.table.to(h.dtype).T
-    return core.dense(model.head, h)
+        out = h @ model.embed.table.to(h.dtype).T
+    else:
+        out = core.dense(model.head, h)
+    return constrain(out, "logits_btv")
 
 
 def _ffn(blk: Block, cfg: LMConfig, y: torch.Tensor, **moe_kw):
@@ -124,16 +162,17 @@ def _block_apply(blk: Block, cfg: LMConfig, x: torch.Tensor):
     # has no context-parallel form
     cp = {} if cfg.attention == "mla" else {"cp_degree": cfg.cp_degree}
     x = x + blk.attn(y, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk, **cp)
+    x = constrain(x, "act_btd")
     y = core.rmsnorm(blk.ln2, x)
     f, aux = _ffn(blk, cfg, y, group_size=cfg.moe_group)
-    return x + f, aux
+    return constrain(x + f, "act_btd"), aux
 
 
 def lm_forward(model: LM, tokens: torch.Tensor, *, dtype=torch.bfloat16):
     """tokens (B, S) → hidden (B, S, d_model) in `dtype`, aux loss (float32:
     the sum of the MoE blocks' Switch losses, zero for dense blocks)."""
     cfg = model.cfg
-    x = core.embed(model.embed, tokens, dtype=dtype)
+    x = constrain(core.embed(model.embed, tokens, dtype=dtype), "act_btd")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for blk in model.blocks:
@@ -147,14 +186,11 @@ def lm_forward(model: LM, tokens: torch.Tensor, *, dtype=torch.bfloat16):
 
 
 def _ce_chunk(model: LM, h: torch.Tensor, targets: torch.Tensor):
-    """Summed cross entropy of one sequence chunk, from float32 logits.
-    The gold logit is a gather; the reference takes it with a one-hot
-    einsum, whose other terms are exact zeros (the same value), because a
-    gather along a tensor-parallel vocab axis would all-gather the
-    logits."""
+    """Summed cross entropy of one sequence chunk, from float32 logits
+    (the gold logit by `core.gold_logit`)."""
     logits = _logits(model, h).float()
-    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
-    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+    return (torch.logsumexp(logits, dim=-1)
+            - core.gold_logit(logits, targets)).sum()
 
 
 def lm_loss(model: LM, tokens: torch.Tensor, *, dtype=torch.bfloat16):

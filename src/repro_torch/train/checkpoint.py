@@ -13,10 +13,13 @@ written by either package loads in the other.
   * restore onto any device: `device=` places every leaf there (the
     reference's `shardings=`), else each leaf goes to its template's device;
   * async: `CheckpointManager.maybe_save` copies the tree to host memory,
-    then a background thread writes it; `wait()` joins.
-
-The port runs in one process, so that process writes (the reference's
-multi-host gate waits for the distributed item of ROADMAP.md Queue 1).
+    then a background thread writes it; `wait()` joins;
+  * multi-process discipline (the reference's multi-host gate): a DTensor
+    leaf is saved as its whole tensor (gathered on every rank: call the
+    save on every rank), and only rank 0 of the default process group
+    writes; a restore reads the file on every rank and re-distributes each
+    DTensor leaf onto its template's mesh and placements, so a checkpoint
+    of a sharded run loads into one process and back.
 """
 from __future__ import annotations
 
@@ -27,6 +30,9 @@ import threading
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from repro_torch.distributed.sharding import full
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_step",
            "CheckpointManager"]
@@ -60,9 +66,20 @@ def _unflatten(template, flat: dict, prefix=()):
     return flat["/".join(prefix)]
 
 
+def _rank() -> int:
+    """This process's rank in the default group (0 without one)."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _to_host(leaf: torch.Tensor) -> torch.Tensor:
+    """A host copy of the leaf's whole value (a DTensor's gathered)."""
+    return full(leaf.detach()).to("cpu", copy=True)
+
+
 def _to_numpy(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
     """(the array to store, the dtype to record)."""
-    t = leaf.detach().cpu()
+    t = full(leaf.detach()).cpu()
     name = str(t.dtype).removeprefix("torch.")
     if t.dtype == torch.bfloat16:
         t = t.float()
@@ -72,17 +89,20 @@ def _to_numpy(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
 def save_checkpoint(directory: str, step: int, tree, *, keep: int = 3,
                     extra: dict | None = None) -> str:
     """Write `tree` (nested dicts, lists and tuples of tensors) as step
-    `step`; keep the newest `keep` steps. Returns the step's
-    directory."""
+    `step`; keep the newest `keep` steps. Returns the step's directory,
+    or "" on a rank other than 0, which writes nothing (every rank takes
+    part in gathering the tree's DTensor leaves)."""
+    flat = {key: _to_numpy(leaf) for key, leaf in _flatten(tree).items()}
+    if _rank() != 0:
+        return ""
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f"tmp.{step}")
     final = os.path.join(directory, f"step_{step:010d}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    arrays, dtypes = {}, {}
-    for key, leaf in _flatten(tree).items():
-        arrays[key], dtypes[key] = _to_numpy(leaf)
+    arrays = {key: a for key, (a, _) in flat.items()}
+    dtypes = {key: d for key, (_, d) in flat.items()}
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     manifest = {"step": step, "keys": sorted(arrays),
                 "extra": extra or {}, "dtypes": dtypes,
@@ -115,8 +135,9 @@ def load_checkpoint(directory: str, template, *, step: int | None = None,
                     device=None):
     """Restore into the structure of `template` (a tree of tensors): each
     leaf in its template's dtype, on `device` if given, else on its
-    template's device. Returns (tree, manifest); the newest step unless
-    `step` is given."""
+    template's device; a DTensor template's leaf distributed like it
+    (each rank keeps its own shard of the whole array it read). Returns
+    (tree, manifest); the newest step unless `step` is given."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -133,9 +154,15 @@ def load_checkpoint(directory: str, template, *, step: int | None = None,
             if tuple(arr.shape) != tuple(tmpl.shape):
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{arr.shape} vs {tuple(tmpl.shape)}")
-            out[key] = torch.from_numpy(arr).to(
-                device=tmpl.device if device is None else device,
-                dtype=tmpl.dtype)
+            if isinstance(tmpl, DTensor):
+                out[key] = distribute_tensor(
+                    torch.from_numpy(arr).to(device=tmpl.device,
+                                             dtype=tmpl.dtype),
+                    tmpl.device_mesh, tmpl.placements, src_data_rank=None)
+            else:
+                out[key] = torch.from_numpy(arr).to(
+                    device=tmpl.device if device is None else device,
+                    dtype=tmpl.dtype)
     return _unflatten(template, out), manifest
 
 
@@ -155,10 +182,12 @@ class CheckpointManager:
         self.wait()
         # snapshot before the async write: a copy, because a CPU tensor's
         # numpy() shares its memory and the next in-place update would
-        # rewrite the checkpoint while it is being saved
+        # rewrite the checkpoint while it is being saved (every rank
+        # gathers its DTensor leaves; only rank 0 writes)
         host_tree = _unflatten(tree, {
-            k: v.detach().to("cpu", copy=True)
-            for k, v in _flatten(tree).items()})
+            k: _to_host(v) for k, v in _flatten(tree).items()})
+        if _rank() != 0:
+            return True
         self._thread = threading.Thread(
             target=save_checkpoint,
             args=(self.directory, step, host_tree),
@@ -173,8 +202,12 @@ class CheckpointManager:
 
     def restore_or_none(self, template, device=None):
         """(tree, manifest) of the newest step once a pending save has
-        landed, or (None, None) when there is none."""
+        landed (rank 0's, on every rank of a process group), or
+        (None, None) when there is none."""
         self.wait()
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.barrier()
         step = latest_step(self.directory)
         if step is None:
             return None, None

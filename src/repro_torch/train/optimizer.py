@@ -8,7 +8,9 @@ after clipping the gradients to `clip_norm`, the pre-clip norm returned as
 `gnorm` — but writes the parameters and the moments in place, leaf by
 leaf, as the decode cache is written in place.
 `torch.optim.AdamW` decays before the moment step and has no global-norm
-clip, so it is not used.
+clip, so it is not used. On a mesh the parameters, gradients and moments
+are DTensors of one placement each, every update is local to a shard, and
+the clipping norm is the global one.
 """
 from __future__ import annotations
 
@@ -18,14 +20,19 @@ from typing import Callable
 
 import torch
 
+from repro_torch.distributed.sharding import full
+
 __all__ = ["AdamW", "cosine_schedule", "global_norm", "clip_by_global_norm"]
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32 (a dict of
-    tensors or a sequence of them)."""
+    tensors or a sequence of them). A DTensor leaf counts whole (its
+    shards' norms reduced over its mesh), so the norm of a sharded tree is
+    the global one; the result is a plain tensor."""
     leaves = tree.values() if isinstance(tree, dict) else tree
-    norms = torch._foreach_norm([x.float() for x in leaves])
+    norms = [full(n) for n in torch._foreach_norm([x.float()
+                                                   for x in leaves])]
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
