@@ -298,11 +298,22 @@ Phases, in order; any failure exits non-zero:
               bit-identical to the plain version and to bitmap_intersect
               over the whole tables, then timed on the rank's shard beside
               its plain version (the kernels line's bitmap_intersect row).
-              Then the dry runs of qwen2-1.5b x train_4k on (16, 16) and
-              of the engine cell on (2, 16, 16) on the host, one after the
-              other, their rows printed. A failed check or rank fails the
+              Then each GNN (gatedgcn, nequip, dimenet, equiformer-v2) at
+              its published width on the shape phase 5d runs faster
+              (PLACE_GNN_SHAPES), float32, TF32 off: one train step
+              undistributed, then one with the parameters and the batch
+              placed by the policy (nodes, edges and triplets split over
+              every mesh dim, parameters whole; every gather and sum by
+              node, edge or triplet index on each rank's own rows), loss
+              and gnorm held within PLACE_LOSS_RTOL / PLACE_GNORM_RTOL, no
+              kernel launched. Beside the ranks, from the phase's start,
+              the dry runs on the host, all started together, one thread
+              each (`dryrun_cells`): qwen2-1.5b x train_4k and each GNN at
+              molecule on (16, 16), the engine cell on (2, 16, 16), their
+              rows printed. A failed check or rank fails the
               script; `chip_dist.py` runs this phase without the dry runs
-              on several cards;
+              on several cards, then the cells one card runs cut, uncut
+              on four;
   6. timing — each kernel's median device time at its path's shapes beside
               its plain version's, its bound and, for flash_decode, the
               time of `scaled_dot_product_attention`, the achieved bytes/s
@@ -320,7 +331,8 @@ Phases, in order; any failure exits non-zero:
               flash_decode_merge's from phase 5a's sharded check; each row
               with phase 5d's 0 launches by path and phase 5e's
               launches; the partials' and merge's with phase 5e's held
-              differences), and last the line
+              differences; each row with phase 5e's GNN steps' 0
+              launches), and last the line
               {"ok": true, "device": {"platform": "gpu", ...}}.
 
 It imports nothing of jax or of the JAX package `repro`.
@@ -4170,8 +4182,21 @@ PLACE_LOSS_RTOL, PLACE_GNORM_RTOL = 1e-5, 1e-4
 PLACE_LOGITS_ATOL = 5e-3
 PLACE_BF16_RATIO = 2.0
 ENGINE_CELL = {"frontier_rows": 65_536, "space": 262_144, "k_bwd": 3}
+# each GNN's placed step at its published width, on the shape phase 5d
+# runs it faster of molecule and full_graph_sm (phase 5d on the H100:
+# dimenet 278 ms against 2,273 on molecule, equiformer-v2 925 against 952;
+# gatedgcn's and nequip's both under 0.2 s), float32, TF32 off: held
+# against the undistributed step by PLACE_LOSS_RTOL / PLACE_GNORM_RTOL
+PLACE_GNN_SHAPES = {"gatedgcn": "molecule", "nequip": "molecule",
+                    "dimenet": "full_graph_sm",
+                    "equiformer-v2": "full_graph_sm"}
 PLACE_TIMEOUT_S = 900
-DRYRUN_TIMEOUT_S = 400            # each dry run; qwen2's traced in ~190 s
+# the dry runs start together on the host and must all end within this:
+# qwen2's train_4k traces in ~200–280 s on the H100 machine's host; a GNN
+# cell, each at molecule, the shape cheapest to trace (the fewest edges
+# and triplets)
+DRYRUN_TIMEOUT_S = 400
+DRYRUN_GNN_SHAPE = "molecule"
 
 
 def _place_model(n: int) -> int:
@@ -4219,6 +4244,71 @@ def _train_step_held(bundle, mesh, batch, dev) -> dict:
     local = wi.to_local() if isinstance(wi, DTensor) else wi
     out["wi_local_shape"] = list(local.shape)
     del model, state
+    return out
+
+
+def _gnn_step(bundle, shape: str, mesh, batch, dev) -> dict:
+    """One float32 train step of `shape` on `batch` from a fresh model of
+    seed 0: undistributed with `mesh` None, else with the parameters and
+    the batch placed by the policy (nodes, edges and triplets split over
+    `mesh` flattened to one dim, parameters whole) in its sharding
+    context."""
+    from repro_torch.config import GNN_SHAPES
+    from repro_torch.distributed import policy
+    from repro_torch.distributed.sharding import sharding_ctx
+    kind = GNN_SHAPES[shape]["kind"]
+    model = bundle.init_fn_for(shape)(0)
+    ctx = contextlib.nullcontext
+    if mesh is not None:
+        mesh = policy.placement_mesh("gnn", mesh)
+        policy.distribute_model(model, bundle.cfg, mesh)
+        batch = policy.distribute_inputs(batch, mesh, "gnn")
+        ctx = functools.partial(sharding_ctx, mesh, policy.activation_rules(
+            bundle.cfg, mesh, kind))
+    state = bundle.optimizer.init(dict(model.named_parameters()))
+    sync(dev)
+    t0 = time.perf_counter()
+    with ctx():
+        _, state, m = bundle.steps[kind](model, state, batch)
+    loss, gnorm = float(m["loss"]), float(m["gnorm"])
+    sync(dev)
+    out = {"loss": loss, "gnorm": gnorm,
+           "ms": (time.perf_counter() - t0) * 1e3}
+    if mesh is not None:
+        out["placements"] = [str(p) for p in batch["edge_src"].placements]
+    del model, state
+    return out
+
+
+def _gnn_held(mesh, dev, reduced: bool) -> dict:
+    """Each GNN of GNN_ARCHS on its PLACE_GNN_SHAPES shape: one step
+    undistributed, then one placed on `mesh`, loss and gnorm held within
+    PLACE_LOSS_RTOL / PLACE_GNORM_RTOL; no kernel launched (counts set to 0
+    just before and read just after)."""
+    from repro_torch.kernels import bitmap_intersect as bi
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.api import build_bundle
+    out = {}
+    for arch in GNN_ARCHS:
+        shape = PLACE_GNN_SHAPES[arch]
+        bundle = build_bundle(arch, reduced=reduced, device=dev)
+        batch = bundle.make_inputs(shape, seed=0)
+        reset_kernel_launches(bi, fd)
+        plain = _gnn_step(bundle, shape, None, batch, dev)
+        release(dev)
+        placed = _gnn_step(bundle, shape, mesh, batch, dev)
+        launches = kernel_launch_counts(bi, fd)
+        del batch
+        release(dev)
+        require_no_launches(f"placed {arch} {shape}", launches)
+        for key, tol in (("loss", PLACE_LOSS_RTOL),
+                         ("gnorm", PLACE_GNORM_RTOL)):
+            a, b = placed[key], plain[key]
+            if not abs(a - b) <= tol * abs(b):
+                raise SystemExit(f"placed {arch} {shape} train step {key} "
+                                 f"{a} against {b}, rtol {tol}")
+        out[arch] = {"shape": shape, "plain": plain, "placed": placed,
+                     "launches": launches}
     return out
 
 
@@ -4556,6 +4646,9 @@ def placement_rank(rank: int, world: int, port: int, out_dir: str,
                              f"{eng['equals_whole_kernel']})")
         eng["seconds"] = time.perf_counter() - t0
         res["engine"] = eng
+        t0 = time.perf_counter()
+        res["gnn"] = _gnn_held(mesh, dev, reduced)
+        res["gnn"]["seconds"] = time.perf_counter() - t0
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
@@ -4576,32 +4669,53 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def dryrun_cells() -> list:
+    """(name, dryrun arguments) of phase 5e's dry runs: qwen2-1.5b x
+    train_4k and one cell of each GNN on (16, 16), the engine cell on
+    (2, 16, 16)."""
+    return ([("qwen2-1.5b train_4k (16, 16)",
+              ["--arch", LM_ARCH, "--shape", TRAIN_SHAPE])]
+            + [(f"{a} {DRYRUN_GNN_SHAPE} (16, 16)",
+                ["--arch", a, "--shape", DRYRUN_GNN_SHAPE])
+               for a in GNN_ARCHS]
+            + [("cemr-engine (2, 16, 16)", ["--engine", "--multi-pod"])])
+
+
 def run_dryruns() -> list:
-    """Phase 5e's dry runs on the host, one after the other: qwen2-1.5b x
-    train_4k on (16, 16) and the engine cell on (2, 16, 16), each in a
-    process group of its own, stopped whole after DRYRUN_TIMEOUT_S.
-    Their rows; fails unless each exits 0."""
+    """Phase 5e's dry runs on the host (`dryrun_cells`), all started
+    together, each in a process group of its own, all stopped whole
+    unless every one ends within DRYRUN_TIMEOUT_S. Their rows; fails
+    unless each exits 0."""
     root = Path(__file__).resolve().parent
+    # one thread each: they trace beside the card's ranks on a shared host
     env = {**os.environ, "PYTHONPATH": str(root / "src"),
-           "CUDA_VISIBLE_DEVICES": ""}
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "rows.json")
-        for name, args in (("qwen2-1.5b train_4k (16, 16)",
-                            ["--arch", LM_ARCH, "--shape", TRAIN_SHAPE]),
-                           ("cemr-engine (2, 16, 16)",
-                            ["--engine", "--multi-pod"])):
-            proc = subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
-                 "--out", out], env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True, start_new_session=True)
-            try:
-                log = proc.communicate(timeout=DRYRUN_TIMEOUT_S)[0]
-            except subprocess.TimeoutExpired:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait()
-                raise SystemExit(f"dry run {name} took over "
-                                 f"{DRYRUN_TIMEOUT_S} s")
+        procs = []
+        try:
+            for i, (name, args) in enumerate(dryrun_cells()):
+                out = os.path.join(tmp, f"rows{i}.json")
+                procs.append((name, out, subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     *args, "--out", out], env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True,
+                    start_new_session=True)))
+            deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+            logs = []
+            for name, _, proc in procs:
+                try:
+                    logs.append(proc.communicate(
+                        timeout=max(deadline - time.monotonic(), 1))[0])
+                except subprocess.TimeoutExpired:
+                    raise SystemExit(f"dry run {name} took over "
+                                     f"{DRYRUN_TIMEOUT_S} s")
+        finally:
+            for _, _, proc in procs:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        for (name, out, proc), log in zip(procs, logs):
             if proc.returncode != 0:
                 raise SystemExit(f"dry run {name} exited {proc.returncode}:"
                                  f"\n{log[-3000:]}")
@@ -4624,15 +4738,18 @@ def require_placement_launches(launches: dict, layers: int) -> None:
 def run_phase_5e(card: str, *, dryruns: bool = True,
                  world: int | None = None, reduced: bool = False) -> dict:
     """Phase 5e, placement (see the constants above): one spawned rank a
-    visible card, then, with `dryruns`, the dry runs on the host. Returns
-    rank 0's results, the dry-run rows and the phase's launches (the
-    decode's and the engine cell's, each counted from 0)."""
+    visible card and, with `dryruns`, the dry runs on the host beside
+    them (started first: qwen2's trace is the phase's longest part).
+    Returns rank 0's results, the dry-run rows and the phase's launches
+    (the decode's and the engine cell's, each counted from 0)."""
     import torch.multiprocessing as mp
     from repro_torch.configs.registry import get_config
     t0 = time.perf_counter()
     if world is None:
         world = torch.cuda.device_count()
-    with tempfile.TemporaryDirectory() as tmp:
+    with ThreadPoolExecutor(1) as ex, \
+            tempfile.TemporaryDirectory() as tmp:
+        dry = ex.submit(run_dryruns) if dryruns else None
         mp.spawn(placement_rank, args=(world, free_port(), tmp, reduced),
                  nprocs=world, join=True)
         ranks = []
@@ -4651,7 +4768,8 @@ def run_phase_5e(card: str, *, dryruns: bool = True,
                              f"{res['launches']}")
     require_placement_launches(
         res["launches"], get_config(LM_ARCH, reduced=reduced).n_layers)
-    tr, dec, eng = res["train"], res["decode"], res["engine"]
+    tr, dec, eng, gnn = res["train"], res["decode"], res["engine"], \
+        res["gnn"]
     print("placement " + json.dumps(res), flush=True)
     print(f"placement on {card}: mesh {res['mesh']} over {world} rank(s); "
           f"train_4k batch {TRAIN_BATCH} float32 loss "
@@ -4672,8 +4790,17 @@ def run_phase_5e(card: str, *, dryruns: bool = True,
           f"engine cell bit-identical to the plain version, "
           f"{eng['ms']:.1f} ms (timed {eng.get('timing')}); launches "
           f"{res['launches']}", flush=True)
-    if dryruns:
-        res["dryrun"] = run_dryruns()
+    for arch in GNN_ARCHS:
+        g = gnn[arch]
+        print(f"placed {arch} {g['shape']} on {card}: mesh {res['mesh']} "
+              f"flattened, batch {g['placed']['placements']}, float32 loss "
+              f"{g['placed']['loss']:.6f} against {g['plain']['loss']:.6f}, "
+              f"gnorm {g['placed']['gnorm']:.6f} against "
+              f"{g['plain']['gnorm']:.6f}; a step {g['placed']['ms']:.1f} "
+              f"ms placed, {g['plain']['ms']:.1f} ms undistributed (a "
+              f"first step each); launches {g['launches']}", flush=True)
+    if dry is not None:
+        res["dryrun"] = dry.result()
         for row in res["dryrun"]:
             print("dryrun " + json.dumps(row), flush=True)
     print(f"phase 5e in {time.perf_counter() - t0:.3f} s", flush=True)
@@ -4953,6 +5080,9 @@ def main() -> int:
             "flash_decode_merge": held["merge_max_abs_err"]}
     for k in kernels:
         k["launches_phase_5e"] = place["launches"][k["name"]]
+        k["launches_phase_5e_gnn"] = {
+            arch: g["launches"][k["name"]] for arch, g in place["gnn"].items()
+            if arch != "seconds"}
         if k["name"] in held:
             k["max_abs_err_phase_5e"] = held[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], held[k["name"]])

@@ -13,7 +13,8 @@ rules per (architecture family, shape kind, mesh) — the reference's
     data x model); each shard's decode partials merge by log-sum-exp
     (`nn.attention.GQA.decode`).
   * GNN: parameters replicated (they are small), nodes and edges sharded
-    over every mesh axis.
+    over every mesh axis: on a torch `DeviceMesh`, over the mesh
+    flattened to one dim (`placement_mesh`).
   * BERT4Rec: the item table and the logits vocab-sharded over `model`.
 
 The reference stacks a block's leaves over layers (a leading L); the port
@@ -32,7 +33,8 @@ from repro_torch.distributed.sharding import P, to_placements
 from repro_torch.launch.mesh import mesh_shape
 
 __all__ = ["param_pspecs", "batch_pspecs", "activation_rules", "dp_axes",
-           "distribute_model"]
+           "input_axes", "placement_mesh", "distribute_model",
+           "distribute_inputs"]
 
 
 def dp_axes(mesh) -> tuple:
@@ -45,6 +47,25 @@ def _flat_axes(mesh) -> tuple:
     """All mesh axes — GNN graphs shard over the full fleet (the model
     axis would otherwise idle: GNN params are tiny and replicated)."""
     return tuple(mesh_shape(mesh).axis_names)
+
+
+def input_axes(family: str, mesh) -> tuple:
+    """The mesh axes that split a batch's leading dims: every axis for a
+    GNN (nodes, edges and triplets over the whole fleet), the data-parallel
+    axes otherwise."""
+    return _flat_axes(mesh) if family == "gnn" else dp_axes(mesh)
+
+
+def placement_mesh(family: str, mesh):
+    """The torch `DeviceMesh` a family is placed on. A GNN's: `mesh`
+    flattened to one dim over all its ranks (`DeviceMesh._flatten`, whose
+    one axis is then `_flat_axes`), so a node, edge or triplet dim is split
+    over one mesh dim; DTensor in some torch releases (2.11) mis-places
+    views, einsums and indexes of a tensor dim split over two mesh dims.
+    Every other family's: `mesh` itself."""
+    if family != "gnn" or mesh.ndim == 1:
+        return mesh
+    return mesh._flatten()
 
 
 def _divisible(n: int, mesh, axis: str) -> bool:
@@ -223,10 +244,15 @@ def distribute_model(model: torch.nn.Module, cfg, mesh):
     `DeviceMesh`) placed by `param_pspecs`, in place; returns the model
     (the reference's `jax.device_put(params, shardings)`). Each rank keeps
     the shard of its own copy of the parameter, so ranks that built the
-    model from one seed hold one model."""
-    from torch.distributed.tensor import distribute_tensor
+    model from one seed hold one model. A parameter that is a DTensor
+    already (a block placed as it was drawn) stays as it is; a block alone
+    is placed as it is inside the model (its names carry the same
+    leaves)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
     specs = param_pspecs(model, cfg, mesh)
     for name, p in list(model.named_parameters()):
+        if isinstance(p, DTensor):
+            continue
         mod_name, _, leaf = name.rpartition(".")
         mod = model.get_submodule(mod_name) if mod_name else model
         dt = distribute_tensor(p.detach(), mesh,
@@ -235,3 +261,20 @@ def distribute_model(model: torch.nn.Module, cfg, mesh):
         setattr(mod, leaf,
                 torch.nn.Parameter(dt, requires_grad=p.requires_grad))
     return model
+
+
+def distribute_inputs(inputs: dict, mesh, family: str) -> dict:
+    """Each input a DTensor over `mesh` (a torch `DeviceMesh`), its leading
+    dim split over `input_axes(family, mesh)` where it divides evenly, else
+    whole (the reference's `leaf_pspec`). Each rank keeps its shard of its
+    own copy, so ranks that made the batch from one seed hold one batch."""
+    from torch.distributed.tensor import distribute_tensor
+    axes = input_axes(family, mesh)
+    n = _size(mesh, axes)
+    out = {}
+    for name, t in inputs.items():
+        split = t.dim() >= 1 and t.shape[0] > 0 and t.shape[0] % n == 0
+        spec = P(axes, *([None] * (t.dim() - 1))) if split else P()
+        out[name] = distribute_tensor(t, mesh, to_placements(spec, mesh),
+                                      src_data_rank=None)
+    return out

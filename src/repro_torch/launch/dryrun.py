@@ -16,9 +16,12 @@ of 256 ranks ((16, 16) data x model) or 512 ((2, 16, 16) pod x data x
 model), and every tensor is a `FakeTensorMode` tensor: the process plays
 rank 0. A cell's
 parameters become fake DTensors placed by the policy, its inputs are
-sharded over the data-parallel axes where they divide, and one step of
+sharded over the data-parallel axes (a GNN's over every axis, the mesh
+flattened to one dim: `policy.placement_mesh`) where they divide
+(`policy.distribute_inputs`), and one step of
 the cell's kind runs eagerly (train, prefill, decode with the policy's
-cache placement, serve or retrieval, a GNN's train step) inside the
+cache placement, serve or retrieval, a GNN's train step, its gathers and
+sums by node or edge index on each rank's own rows) inside the
 policy's sharding context, under `roofline.StepTrace`: rank 0's FLOPs,
 collectives and peak live bytes. The HBM term is
 `hbm_floor_bytes(bundle, shape, MeshShape(...))`, as in the reference;
@@ -120,41 +123,27 @@ def _batch_of(specs: dict) -> int:
     return 0
 
 
-def _distributed_inputs(specs: dict, mesh, dp) -> dict:
-    """Zero inputs of the specs' shapes, each DTensor's leading dim sharded
-    over `dp` where it divides evenly, else replicated (the reference's
-    `leaf_pspec`)."""
-    from torch.distributed.tensor import distribute_tensor
-    dp_n = policy._size(mesh, dp)
-    out = {}
-    for name, (shape, dtype) in specs.items():
-        split = len(shape) >= 1 and shape[0] > 0 and shape[0] % dp_n == 0
-        spec = P(dp, *([None] * (len(shape) - 1))) if split else P()
-        out[name] = distribute_tensor(torch.zeros(shape, dtype=dtype), mesh,
-                                      to_placements(spec, mesh),
-                                      src_data_rank=None)
-    return out
-
-
 def _trace_cell(arch: str, shape_id: str, mesh, override=None):
     """One step of the cell under fake tensors: (bundle, kind, trace,
     arguments, outputs)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     bundle = build_bundle(arch, override=override, device="cpu")
+    mesh = policy.placement_mesh(bundle.family, mesh)
     spec = shapes_for(arch)[shape_id]
     kind = spec["kind"]
     step = bundle.steps[kind]
     in_specs = bundle.input_specs(shape_id)
     batch = _batch_of(in_specs)
     rules = policy.activation_rules(bundle.cfg, mesh, kind, batch=batch)
-    dp = (policy._flat_axes(mesh) if bundle.family == "gnn"
-          else policy.dp_axes(mesh))
     init = (bundle.init_fn_for(shape_id) if bundle.family == "gnn"
             else bundle.init_fn)
     with FakeTensorMode(), _strided_shard_offsets_on_host(), \
             _fresh_tensor_caches():
         model = policy.distribute_model(init(0), bundle.cfg, mesh)
-        inputs = _distributed_inputs(in_specs, mesh, dp)
+        inputs = policy.distribute_inputs(
+            {name: torch.zeros(shape, dtype=dtype)
+             for name, (shape, dtype) in in_specs.items()}, mesh,
+            bundle.family)
         with sharding_ctx(mesh, rules):
             if kind == "train" or bundle.family == "gnn":
                 state = bundle.optimizer.init(dict(model.named_parameters()))

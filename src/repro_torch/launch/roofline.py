@@ -149,7 +149,9 @@ class StepTrace(TorchDispatchMode):
     counts them, on the local shapes), `collectives` ((kind, output bytes)
     a call, in order) and `peak_bytes` (the most bytes of storage made by
     the step's ops alive at once, a storage counted while the tensor that
-    made it lives). Works on real tensors and under `FakeTensorMode`."""
+    made it lives; a view or an in-place op's output, an argument's
+    storage, makes none). Works on real tensors and under
+    `FakeTensorMode`."""
 
     def __init__(self):
         super().__init__()
@@ -175,13 +177,17 @@ class StepTrace(TorchDispatchMode):
         kind = self._kinds.get(packet)
         if kind is not None:
             self.collectives.append((kind, _nbytes(out)))
+        # a view or an in-place op's output is an argument's storage: no
+        # new bytes (a decode step's cache write, a weight's transpose)
+        given = {_storage_key(t) for t in tree_leaves((args, kwargs))
+                 if isinstance(t, torch.Tensor)}
         for t in tree_leaves(out):
-            if isinstance(t, torch.Tensor):
+            if isinstance(t, torch.Tensor) and _storage_key(t) not in given:
                 self._track(t)
         return out
 
     def _track(self, t: torch.Tensor) -> None:
-        key = StorageWeakRef(t.untyped_storage()).cdata
+        key = _storage_key(t)
         if key in self._seen:
             return
         n = t.untyped_storage().nbytes()
@@ -193,6 +199,10 @@ class StepTrace(TorchDispatchMode):
     def _free(self, key, n: int) -> None:
         self._seen.discard(key)
         self.live_bytes -= n
+
+
+def _storage_key(t: torch.Tensor) -> int:
+    return StorageWeakRef(t.untyped_storage()).cdata
 
 
 def _in_sharding_propagation() -> bool:

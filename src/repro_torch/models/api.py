@@ -106,11 +106,19 @@ def _train_update(opt: AdamW, model, opt_state, loss_fn):
 def _lm_bundle(arch: str, cfg, reduced: bool, dev) -> ModelBundle:
     opt = AdamW(lr=3e-4)
 
-    def init_fn(seed: int = 0, dtype=torch.float32):
+    def init_fn(seed: int = 0, dtype=torch.float32, mesh=None):
         """The model with each weight drawn on the device and stored in
         `dtype` as it is made (one float32 draw of one tensor at a time,
-        never a float32 copy of the model)."""
-        return T.lm_init(cfg, seed=seed, device=dev, dtype=dtype)
+        never a float32 copy of the model). With `mesh` (a `DeviceMesh`)
+        its parameters are placed by the policy, each block's as soon as
+        the block is drawn, so no card holds the whole model."""
+        if mesh is None:
+            return T.lm_init(cfg, seed=seed, device=dev, dtype=dtype)
+        from repro_torch.distributed import policy
+        return policy.distribute_model(T.lm_init(
+            cfg, seed=seed, device=dev, dtype=dtype,
+            place=lambda blk: policy.distribute_model(blk, cfg, mesh)),
+            cfg, mesh)
 
     def init_caches(batch: int, max_len: int, dtype=torch.bfloat16):
         """Zero decode caches in the attention's layout: GQA {"k", "v"},

@@ -13,16 +13,27 @@ Node-classification shapes train GatedGCN on node_labels; the geometric
 models (NequIP, EquiformerV2, DimeNet) regress per-graph energies. Each
 layer (DimeNet: each interaction block) runs under
 `torch.utils.checkpoint` when gradients are on, as the reference wraps it
-in `jax.checkpoint`. The reference's sharding constraints are no-ops on one
-device and are left out.
+in `jax.checkpoint`.
+
+On a mesh (a DTensor batch: the policy splits nodes, edges and triplets
+over every rank of the mesh flattened to one dim, parameters whole) the
+forward runs on each rank's own rows as plain tensors (`_on_shards`), as
+GSPMD partitions the reference: its gathers and sums by a node, edge or
+triplet index (`core.gather_rows`, `core.segment_sum`, `segment_max`) are
+the only steps that reach other ranks, through collectives, and the
+output comes back a DTensor for the loss. No DTensor is indexed, viewed
+or contracted in a layer: DTensor in some torch releases (2.11) places
+none of these on a dim split over two mesh dims, and no flip at all.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import constrain
@@ -33,14 +44,82 @@ __all__ = ["GatedGCN", "NequIP", "EquiformerV2", "DimeNet", "GNN_MODELS",
 
 
 def _remat(fn, *args):
-    if torch.is_grad_enabled():
+    """fn(*args) under a non-reentrant checkpoint when gradients are on.
+    Inside `_on_shards` (args[0] a module whose parameters are this rank's
+    local tensors) the recompute, which may run on another thread after
+    the forward has put the module's DTensors back, runs on the same local
+    tensors and rows."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    mesh = core.row_mesh()
+    if mesh is None:
         return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    local = dict(args[0].named_parameters())
+
+    def run(*a):
+        with core.shard_rows(mesh), _swapped(a[0], local):
+            return fn(*a)
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+@contextlib.contextmanager
+def _swapped(model: nn.Module, params: dict):
+    """model's parameters replaced by `params` (name → tensor) for the
+    block, then put back."""
+    saved = []
+    for name, t in params.items():
+        prefix, _, leaf = name.rpartition(".")
+        sub = model.get_submodule(prefix) if prefix else model
+        saved.append((sub, leaf, sub._parameters[leaf]))
+        sub._parameters[leaf] = t
+    try:
+        yield
+    finally:
+        for sub, leaf, p in reversed(saved):
+            sub._parameters[leaf] = p
+
+
+def _on_shards(model: nn.Module, forward, batch: dict, out_rows: str):
+    """forward(batch, rows): `rows` maps each input to its whole row count.
+    On plain tensors, forward itself. On a DTensor batch (split along its
+    first axis over a one-dim mesh, or whole), each rank runs forward on
+    its own rows as plain tensors inside `core.shard_rows`, with the
+    model's parameters (whole DTensors) swapped for their local tensors,
+    whose gradients come back as the ranks' partial sums; the output, of
+    batch[out_rows]'s row count, comes back a DTensor split along its
+    first axis (whole where the count does not split evenly)."""
+    rows = {k: v.shape[0] for k, v in batch.items()}
+    mask = batch["node_mask"]
+    if not isinstance(mask, DTensor):
+        return forward(batch, rows)
+    mesh = mask.device_mesh
+    split = [k for k in ("node_mask", "edge_mask", "t_mask") if k in batch]
+    if mesh.ndim != 1 or any(batch[k].placements != (Shard(0),)
+                             for k in split):
+        raise ValueError(f"a GNN batch on a mesh splits {split} along "
+                         f"their first axis over a one-dim mesh, not "
+                         f"{[batch[k].placements for k in split]} on "
+                         f"{mesh} (policy.placement_mesh)")
+    params = dict(model.named_parameters())
+    if not all(isinstance(p, DTensor) for p in params.values()):
+        raise ValueError("a GNN batch on a mesh needs the model placed on "
+                         "it (policy.distribute_model)")
+    local = {name: p.to_local(grad_placements=[Partial()])
+             for name, p in params.items()}
+    with core.shard_rows(mesh), _swapped(model, local):
+        out = forward({k: v.to_local() for k, v in batch.items()}, rows)
+    n = rows[out_rows]
+    shape = (n,) + tuple(out.shape[1:])
+    return DTensor.from_local(
+        out, mesh, [Shard(0)] if n % mesh.size() == 0 else [Replicate()],
+        run_check=False, shape=torch.Size(shape),
+        stride=tuple(math.prod(shape[i + 1:]) for i in range(len(shape))))
 
 
 def _edge_vectors(batch):
     pos = batch["positions"]
-    vec = pos[batch["edge_dst"].long()] - pos[batch["edge_src"].long()]
+    vec = (core.gather_rows(pos, batch["edge_dst"])
+           - core.gather_rows(pos, batch["edge_src"]))
     r = torch.sqrt(torch.clamp((vec ** 2).sum(-1), min=1e-12))
     return vec, r
 
@@ -87,7 +166,10 @@ class GatedGCN(nn.Module):
                                **kw)
 
     def forward(self, batch):
-        n = batch["node_mask"].shape[0]
+        return _on_shards(self, self._forward, batch, "node_mask")
+
+    def _forward(self, batch, rows):
+        n = rows["node_mask"]
         if "node_feat" in batch:
             h = core.dense(self.embed_h, batch["node_feat"])
         else:
@@ -105,7 +187,7 @@ class GatedGCN(nn.Module):
         logits = self(batch).float()
         labels = (batch["node_labels"] % logits.shape[-1]).long()
         logz = torch.logsumexp(logits, -1)
-        gold = logits.gather(-1, labels[:, None])[:, 0]
+        gold = core.gold_logit(logits, labels)
         mask = batch["node_mask"]
         nll = torch.where(mask, logz - gold, torch.zeros_like(logz)).sum()
         nll = nll / torch.clamp(mask.sum(), min=1)
@@ -155,9 +237,12 @@ class NequIP(nn.Module):
         return out
 
     def forward(self, batch):
+        return _on_shards(self, self._forward, batch, "energies")
+
+    def _forward(self, batch, rows):
         cfg = self.cfg
         lm = cfg.extra.get("l_max", 2)
-        n = batch["node_mask"].shape[0]
+        n = rows["node_mask"]
         vec, r = _edge_vectors(batch)
         rbf = eq.bessel_basis(r, cfg.extra.get("n_rbf", 8),
                               cfg.extra.get("cutoff", 5.0))     # (E, n_rbf)
@@ -174,9 +259,9 @@ class NequIP(nn.Module):
                 # contract SH with the Gaunt tensor first: (E,m,o) stays small
                 sh_g = torch.einsum("en,mno->emo", sh[l2],
                                     _gaunt(l1, l2, l3, dev))
-                msg = constrain(torch.einsum("ecm,emo->eco", feats[l1][src],
-                                             sh_g) * w[:, :, None],
-                                "gnn_irreps")
+                msg = constrain(torch.einsum(
+                    "ecm,emo->eco", core.gather_rows(feats[l1], src), sh_g)
+                    * w[:, :, None], "gnn_irreps")
                 agg = constrain(core.segment_sum(
                     torch.where(emask, msg, torch.zeros_like(msg)), dst, n),
                     "gnn_irreps")
@@ -192,7 +277,7 @@ class NequIP(nn.Module):
             feats = _remat(layer_fn, lp, feats)
         energy_per_node = core.mlp(self.head, feats[0][..., 0])
         return _graph_readout(energy_per_node, batch["graph_ids"],
-                              batch["energies"].shape[0], batch["node_mask"])
+                              rows["energies"], batch["node_mask"])
 
     def loss(self, batch):
         return _energy_mse(self, batch)
@@ -223,17 +308,21 @@ class EquiformerV2(nn.Module):
         self.head = core.MLP((c, c, 1), bias=True, **kw)
 
     def forward(self, batch):
+        return _on_shards(self, self._forward, batch, "energies")
+
+    def _forward(self, batch, rows):
         cfg = self.cfg
         lm = cfg.extra.get("l_max", 6)
         c = cfg.d_hidden
-        n = batch["node_mask"].shape[0]
+        n = rows["node_mask"]
         vec, _ = _edge_vectors(batch)
         alpha_ang, beta_ang = eq.align_to_z_angles(vec)
         src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
         edge_mask = batch["edge_mask"]
 
         def layer_fn(lp, feats):
-            edge_feats = {l: constrain(f[src], "gnn_irreps")
+            edge_feats = {l: constrain(core.gather_rows(f, src),
+                                       "gnn_irreps")
                           for l, f in feats.items()}
             rot = eq.rotate_to_edge_frame(edge_feats, alpha_ang, beta_ang, lm)
             mixed = {l: constrain(f, "gnn_irreps")
@@ -243,7 +332,8 @@ class EquiformerV2(nn.Module):
             mixed = {l: (nn.functional.silu(f) if l == 0
                          else f * gate[:, :, None]) for l, f in mixed.items()}
             # attention weights from invariant (m=0) channels
-            inv = torch.cat([feats[0][dst][..., 0], mixed[0][..., 0]], dim=-1)
+            inv = torch.cat([core.gather_rows(feats[0], dst)[..., 0],
+                             mixed[0][..., 0]], dim=-1)
             a = core.mlp(lp["alpha"], inv)                     # (E, heads)
             a = gnn.segment_softmax(a, dst, n, edge_mask).mean(-1)   # (E,)
             mixed = {l: f * a[:, None, None] for l, f in mixed.items()}
@@ -263,7 +353,7 @@ class EquiformerV2(nn.Module):
             feats = _remat(layer_fn, lp, feats)
         e_node = core.mlp(self.head, feats[0][..., 0])
         return _graph_readout(e_node, batch["graph_ids"],
-                              batch["energies"].shape[0], batch["node_mask"])
+                              rows["energies"], batch["node_mask"])
 
     def loss(self, batch):
         return _energy_mse(self, batch)
@@ -308,33 +398,38 @@ class DimeNet(nn.Module):
         self.head = core.MLP((c, c, 1), bias=True, **kw)
 
     def forward(self, batch):
+        return _on_shards(self, self._forward, batch, "energies")
+
+    def _forward(self, batch, rows):
         cfg = self.cfg
         n_rbf = cfg.extra.get("n_radial", 6)
         n_sph = cfg.extra.get("n_spherical", 7)
         cutoff = cfg.extra.get("cutoff", 5.0)
-        n = batch["node_mask"].shape[0]
+        n = rows["node_mask"]
         src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
         vec, r = _edge_vectors(batch)
         rbf = eq.bessel_basis(r, n_rbf, cutoff)                 # (E, n_rbf)
         h = core.embed(self.embed, batch["species"], self.embed.table.dtype)
         m = core.mlp(self.edge_embed, torch.cat(
-            [h[src], h[dst], core.dense(self.rbf_proj, rbf)], -1))   # (E, C)
+            [core.gather_rows(h, src), core.gather_rows(h, dst),
+             core.dense(self.rbf_proj, rbf)], -1))                # (E, C)
         t_kj, t_ji = batch["t_kj"].long(), batch["t_ji"].long()
         t_mask = batch["t_mask"]
         # angle between edge (j→i) and (k→j)
-        v_ji = vec[t_ji]
-        v_kj = -vec[t_kj]
+        v_ji = core.gather_rows(vec, t_ji)
+        v_kj = -core.gather_rows(vec, t_kj)
         cosang = (v_ji * v_kj).sum(-1) / torch.clamp(
             torch.linalg.vector_norm(v_ji, dim=-1)
             * torch.linalg.vector_norm(v_kj, dim=-1), min=1e-9)
         ang = eq.legendre_poly(torch.clamp(cosang, -1, 1), n_sph - 1)
-        sbf = (eq.bessel_basis(r[t_kj], n_rbf, cutoff)[:, :, None]
+        sbf = (eq.bessel_basis(core.gather_rows(r, t_kj), n_rbf,
+                               cutoff)[:, :, None]
                * ang[:, None, :]).reshape(-1, n_rbf * n_sph)     # (T, ...)
-        e_count = m.shape[0]
+        e_count = rows["edge_mask"]
         m = constrain(m, "gnn_nodes")
 
         def block_fn(bp, m):
-            m_kj = core.mlp(bp.msg_mlp, m)[t_kj]                # (T, C)
+            m_kj = core.gather_rows(core.mlp(bp.msg_mlp, m), t_kj)  # (T, C)
             w_s = core.dense(bp.sbf_w, sbf)                     # (T, n_bil)
             inter = torch.einsum(
                 "tbd,tb->td", torch.einsum("tc,bcd->tbd", m_kj, bp.bilinear),
@@ -352,7 +447,7 @@ class DimeNet(nn.Module):
         node_e = gnn.scatter_sum(m, dst, n, batch["edge_mask"])
         e_node = core.mlp(self.head, node_e)
         return _graph_readout(e_node, batch["graph_ids"],
-                              batch["energies"].shape[0], batch["node_mask"])
+                              rows["energies"], batch["node_mask"])
 
     def loss(self, batch):
         return _energy_mse(self, batch)

@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import all_gather, constrain, full
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref
 from repro_torch.kernels.flash_decode import (flash_decode_merge,
                                               flash_decode_partials)
 from . import core
@@ -267,7 +268,8 @@ class GQA(nn.Module):
         q, k_new, v_new = self.qkv(x, lengths[:, None])
         if isinstance(k_cache, DTensor):
             o = sharded_gqa_decode(q[:, 0], k_new[:, 0], v_new[:, 0],
-                                    k_cache, v_cache, lengths, like=x)
+                                    k_cache, v_cache, lengths, like=x,
+                                    use_kernel=use_kernel)
         else:
             bidx = torch.arange(b, device=x.device)
             pos = lengths.long()
@@ -329,7 +331,8 @@ def _rows_out(o: torch.Tensor, cache: DTensor, b_dims, like):
 
 
 def sharded_gqa_decode(q, k_new, v_new, k_cache: DTensor,
-                        v_cache: DTensor, lengths, *, like):
+                        v_cache: DTensor, lengths, *, like,
+                        use_kernel: bool = True):
     """Decode attention over a cache DTensor sharded along B and S (the
     policy's `cache_bsnd`): each rank writes the new K/V row where its
     block holds position lengths[b], runs `flash_decode_partials` over its
@@ -338,19 +341,23 @@ def sharded_gqa_decode(q, k_new, v_new, k_cache: DTensor,
     `flash_decode_merge` (`distributed.context_parallel`'s lanes, with
     collectives in place of a host loop). q (B, H, D), k_new, v_new
     (B, Hkv, D), lengths (B,) whole or DTensors; returns (B, H, D) like
-    `like`."""
+    `like`. `use_kernel=False` runs the partials and the merge through
+    their plain versions (`kernels.ref`), on any device."""
     (b0, nb), (s0, _), b_dims, s_dims = _block_of(k_cache)
     rows = slice(b0, b0 + nb)
     q, lengths = full(q)[rows], full(lengths)[rows]
     k_loc, v_loc = k_cache.to_local(), v_cache.to_local()
     _write_row(k_loc, full(k_new)[rows], lengths, s0)
     _write_row(v_loc, full(v_new)[rows], lengths, s0)
-    part = flash_decode_partials(q, k_loc, v_loc, lengths + 1, s0)[:, :, None]
+    partials, merge = ((flash_decode_partials, flash_decode_merge)
+                       if use_kernel else (ref.flash_decode_partials_ref,
+                                           ref.flash_decode_merge_ref))
+    part = partials(q, k_loc, v_loc, lengths + 1, s0)[:, :, None]
     mesh = k_cache.device_mesh
     for i in reversed(s_dims):      # innermost first: blocks in S order
         if mesh.size(i) > 1:
             part = all_gather(part, 2, (mesh, i))
-    o = flash_decode_merge(part.contiguous(), q.dtype)
+    o = merge(part.contiguous(), q.dtype)
     return _rows_out(o, k_cache, b_dims, like)
 
 

@@ -1,6 +1,8 @@
 """NN primitives: dense, RMSNorm, LayerNorm, rotary, SwiGLU, the GELU
-MLP, embeddings and the embedding bag, the segment sum and max (the
-reference's `jax.ops.segment_*`), and their initialisers.
+MLP, embeddings and the embedding bag, the row gather and the segment
+sum and max (the reference's `x[idx]` and `jax.ops.segment_*`; inside
+`shard_rows` on each rank's own rows, with collectives), and their
+initialisers.
 
 Each layer is a small `nn.Module` whose parameters carry the JAX package's
 names (`w`, `b`, `g`, `table`, and a dense weight kept as (d_in, d_out)),
@@ -24,7 +26,9 @@ reference's distributions, not its bits.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 from torch import nn
@@ -32,10 +36,13 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.distributed.sharding import constrain
 
+_rows = threading.local()
+
 __all__ = ["normal_init", "uniform_init", "Dense", "dense", "RMSNorm",
            "rmsnorm", "LayerNorm", "layernorm", "rope_angles", "apply_rope",
            "SwiGLU", "swiglu", "gelu", "MLP", "mlp", "Embedding", "embed",
-           "embedding_bag", "gold_logit", "segment_sum", "segment_max"]
+           "embedding_bag", "gold_logit", "shard_rows", "row_mesh",
+           "gather_rows", "segment_sum", "segment_max"]
 
 
 # ----------------------------------------------------------------- init
@@ -229,12 +236,51 @@ def gold_logit(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return (logits * onehot).sum(-1)
 
 
+@contextlib.contextmanager
+def shard_rows(mesh):
+    """For the block, plain tensors are this rank's rows of tensors split
+    evenly along their first axis over `mesh` (a one-dim `DeviceMesh`):
+    `gather_rows`, `segment_sum` and `segment_max` then reach the other
+    ranks' rows through collectives, as GSPMD partitions the reference's
+    gathers and segment reductions. Thread-local; nested blocks restore
+    the outer one."""
+    prev = getattr(_rows, "mesh", None)
+    _rows.mesh = mesh
+    try:
+        yield
+    finally:
+        _rows.mesh = prev
+
+
+def row_mesh():
+    """The mesh of the innermost `shard_rows` block of this thread, or
+    None."""
+    return getattr(_rows, "mesh", None)
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] over the first axis: the node (or edge) rows an index needs.
+    Inside `shard_rows`, x is this rank's rows: the ranks' rows are
+    all-gathered and indexed by this rank's idx (global row numbers); the
+    backward reduce-scatters each rank's partial sum to the rows' owners."""
+    mesh = row_mesh()
+    if mesh is not None:
+        x = DTensor.from_local(x, mesh, [Shard(0)], run_check=False) \
+            .redistribute(mesh, [Replicate()]) \
+            .to_local(grad_placements=[Partial()])
+    return x[idx.long()]
+
+
 def segment_sum(values: torch.Tensor, ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """out[ids[e]] += values[e] over the first axis (`jax.ops.segment_sum`);
-    0 for an empty segment."""
+    0 for an empty segment. Inside `shard_rows`, values and ids are this
+    rank's rows, num_segments the whole range: each rank's partial sum is
+    reduce-scattered, and this rank's rows of the result come back (the
+    whole result when num_segments does not split evenly). Padded rows
+    must carry exact zeros."""
     out = values.new_zeros((num_segments,) + values.shape[1:])
-    return out.index_add(0, ids.long(), values)
+    return _reduced(out.index_add(0, ids.long(), values), "sum")
 
 
 def segment_max(values: torch.Tensor, ids: torch.Tensor,
@@ -242,34 +288,37 @@ def segment_max(values: torch.Tensor, ids: torch.Tensor,
     """The largest values[e] of each segment over the first axis, -inf for
     an empty segment (`jax.ops.segment_max`; a torch `scatter_reduce("amax",
     include_self=False)` would keep the initial value, so it starts from
-    -inf)."""
-    if isinstance(values, DTensor):
-        return _sharded_segment_max(values, ids, num_segments)
+    -inf). Inside `shard_rows`, as `segment_sum` with a max over the
+    ranks."""
     out = values.new_full((num_segments,) + values.shape[1:], -torch.inf)
     idx = ids.long().reshape((-1,) + (1,) * (values.dim() - 1))
-    return out.scatter_reduce(0, idx.expand_as(values), values, "amax",
-                              include_self=False)
+    return _reduced(out.scatter_reduce(0, idx.expand_as(values), values,
+                                       "amax", include_self=False), "max")
 
 
-def _sharded_segment_max(values, ids, num_segments: int):
-    """`segment_max` of DTensor values whose first axis (edges) is sharded
-    like `ids` and whose other axes are whole: each rank's segment max over
-    its own edges, then the max over the ranks (an all-reduce), as GSPMD
-    partitions the reference's segment_max. DTensor has no sharding rule
-    for `scatter_reduce`."""
-    mesh = values.device_mesh
-    if not isinstance(ids, DTensor) or ids.placements != values.placements \
-            or any(isinstance(p, Shard) and p.dim != 0
-                   for p in values.placements) \
-            or any(isinstance(p, Partial) for p in values.placements):
-        raise ValueError(f"segment_max over values {values.placements} and "
-                         f"ids {getattr(ids, 'placements', 'plain')}: both "
-                         "split along their first axis alike")
-    local = segment_max(values.to_local(), ids.to_local(), num_segments)
-    pl = [Partial("max") if isinstance(p, Shard) else Replicate()
-          for p in values.placements]
-    return DTensor.from_local(local, mesh, pl, run_check=False).redistribute(
-        mesh, [Replicate()] * mesh.ndim)
+def _reduced(part: torch.Tensor, op: str) -> torch.Tensor:
+    """`part`, a rank's partial over a whole segment range, reduced (`op`)
+    over the ranks of the `shard_rows` block: this rank's rows where the
+    range splits evenly, else the whole range. Outside a block, part."""
+    mesh = row_mesh()
+    if mesh is None:
+        return part
+    n = mesh.size()
+    split = part.shape[0] % n == 0
+    if op == "sum":
+        total = DTensor.from_local(part, mesh, [Partial()], run_check=False)
+        return total.redistribute(
+            mesh, [Shard(0) if split else Replicate()]).to_local()
+    # max: every rank's partial gathered, then the max over the ranks, so
+    # the gradient reaches the rank whose rows hold each maximum
+    whole = DTensor.from_local(part[None], mesh, [Shard(0)],
+                               run_check=False).redistribute(
+        mesh, [Replicate()]).to_local(grad_placements=[Partial()]).amax(0)
+    if not split:
+        return whole
+    rows = part.shape[0] // n
+    r = mesh.get_local_rank()
+    return whole[r * rows:(r + 1) * rows]
 
 
 def embedding_bag(p: Embedding, ids: torch.Tensor, segment_ids: torch.Tensor,

@@ -1,11 +1,13 @@
 """Graph message-passing primitives (sums, means and softmax over edges,
-on `core.segment_sum` / `core.segment_max`) and the GatedGCN layer.
+on `core.gather_rows`, `core.segment_sum` / `core.segment_max`) and the
+GatedGCN layer.
 
 Padded edges point at node 0 with `edge_mask` False: their values are
-replaced by exact zeros before any sum, so they add nothing. A node with
-no incoming edge gets 0 from a sum and -inf from a max. The reference's
-sharding constraints (`constrain`) are no-ops on one device and are left
-out.
+replaced by exact zeros before any sum, so they add nothing (inside
+`core.shard_rows`, every rank's partial sum adds exact zeros for them). A
+node with no incoming edge gets 0 from a sum and -inf from a max. The
+reference's sharding constraints (`constrain`) are no-ops on the plain
+tensors these functions see.
 """
 from __future__ import annotations
 
@@ -43,9 +45,9 @@ def segment_softmax(scores, dst, n_nodes: int, edge_mask=None):
     scores: (E,) or (E, H)."""
     scores = _masked(scores, edge_mask, -1e30)
     mx = core.segment_max(scores, dst, n_nodes)
-    ex = _masked(torch.exp(scores - mx[dst.long()]), edge_mask)
+    ex = _masked(torch.exp(scores - core.gather_rows(mx, dst)), edge_mask)
     z = core.segment_sum(ex, dst, n_nodes)
-    return ex / torch.clamp(z[dst.long()], min=1e-20)
+    return ex / torch.clamp(core.gather_rows(z, dst), min=1e-20)
 
 
 # --------------------------------------------------------------- GatedGCN
@@ -69,8 +71,8 @@ def gatedgcn_layer(p: GatedGCNLayer, h, e, src, dst, edge_mask,
       η_ij = σ(ê_ij) / (Σ_j σ(ê_ij) + ε)
       ĥ_i  = h_i + ReLU(LN(U h_i + Σ_j η_ij ⊙ V h_j))
     (LayerNorm for BatchNorm, as the reference has it.)"""
-    hi = h[dst.long()]
-    hj = h[src.long()]
+    hi = core.gather_rows(h, dst)
+    hj = core.gather_rows(h, src)
     e_new = core.dense(p.A, hi) + core.dense(p.B, hj) + core.dense(p.C, e)
     e_out = e + torch.relu(core.layernorm(p.ln_e, e_new))
     sig = torch.sigmoid(e_out)

@@ -69,12 +69,13 @@ class LM(nn.Module):
     paths."""
 
     def __init__(self, cfg: LMConfig, *, gen: torch.Generator, device,
-                 dtype=torch.float32):
+                 dtype=torch.float32, place=None):
         super().__init__()
         self.cfg = cfg
         kw = dict(gen=gen, device=device, dtype=dtype)
         self.embed = core.Embedding(cfg.vocab, cfg.d_model, **kw)
-        self.blocks = nn.ModuleList(Block(cfg, **kw)
+        place = place or (lambda blk: blk)
+        self.blocks = nn.ModuleList(place(Block(cfg, **kw))
                                     for _ in range(cfg.n_layers))
         self.ln_f = core.RMSNorm(cfg.d_model, device=device, dtype=dtype)
         self.head = (None if cfg.tie_embeddings
@@ -82,14 +83,17 @@ class LM(nn.Module):
 
 
 def lm_init(cfg: LMConfig, *, seed: int = 0, device,
-            dtype=torch.float32) -> LM:
+            dtype=torch.float32, place=None) -> LM:
     """A model with weights drawn from a torch.Generator seeded with `seed`
     on `device`, stored in `dtype`. The reference casts each weight to the
     activation dtype at every use, so weights stored in that dtype give
-    the same numbers."""
+    the same numbers. `place(block)`, when given, is applied to each block
+    as soon as it is drawn (placing its parameters on a mesh, so that no
+    card holds the whole model at once)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
-        return LM(cfg, gen=gen, device=device, dtype=dtype).eval()
+        return LM(cfg, gen=gen, device=device, dtype=dtype,
+                  place=place).eval()
 
 
 def lm_init_caches(cfg: LMConfig, batch: int, max_len: int, *,

@@ -8,8 +8,9 @@ Held: the engine cell at (T, S, k) = (1024, 4096, 2) is ok with chips 8
 and `dominant` one of the three terms (the reference's
 `test_dryrun_small`); `collective_bytes` gives the exact output bytes by
 kind of a known sequence of redistributes (the reference's parser test);
-reduced qwen2-1.5b train, decode and prefill, bert4rec serve and
-gatedgcn train cells are ok on both meshes; on (1, 1) no collective runs
+reduced qwen2-1.5b train, decode and prefill, bert4rec serve and the
+four GNNs' train cells are ok on both meshes (a GNN on (4, 2) moves
+bytes: its row all-gathers and partial-sum reduce-scatters); on (1, 1) no collective runs
 and the FLOPs equal `count_flops` of the plain (undistributed) steps;
 the prefill cell's argument bytes are the policy's local shard sizes."""
 import json
@@ -26,6 +27,11 @@ ROOT = Path(__file__).resolve().parents[1]
 CELLS = [("qwen2-1.5b", "train_4k"), ("qwen2-1.5b", "decode_32k"),
          ("qwen2-1.5b", "prefill_32k"), ("bert4rec", "serve_p99"),
          ("gatedgcn", "full_graph_sm")]
+# each reduced GNN's cell beside gatedgcn's: their gathers and sums by node,
+# edge or triplet index run on each rank's own rows (`core.gather_rows`,
+# `core.segment_sum`), whose collectives the trace counts
+GNN_CELLS = [("nequip", "molecule"), ("equiformer-v2", "molecule"),
+             ("dimenet", "molecule")]
 MESHES = {"4x2": 8, "1x1": 1}
 
 
@@ -72,8 +78,8 @@ def test_collective_bytes_of_known_redistributes(dry):
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("arch,shape", CELLS,
-                         ids=[f"{a}-{s}" for a, s in CELLS])
+@pytest.mark.parametrize("arch,shape", CELLS + GNN_CELLS,
+                         ids=[f"{a}-{s}" for a, s in CELLS + GNN_CELLS])
 def test_reduced_cells_are_ok(dry, arch, shape, mesh):
     r = dry[f"{arch}/{shape}/{mesh}"]
     assert r["ok"] and r["chips"] == MESHES[mesh]
@@ -96,6 +102,11 @@ def test_reduced_cells_are_ok(dry, arch, shape, mesh):
         # activations both move bytes
         assert r["coll_breakdown"]["reduce-scatter"] > 0
         assert r["coll_breakdown"]["all-gather"] > 0
+    elif (arch, shape) in GNN_CELLS + [("gatedgcn", "full_graph_sm")]:
+        # node rows gathered for each edge, partial sums reduce-scattered
+        # to the nodes' owners
+        assert r["coll_breakdown"]["all-gather"] > 0
+        assert r["coll_breakdown"]["reduce-scatter"] > 0
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])

@@ -9,7 +9,10 @@ Every parameter's spec must equal the reference's, a block leaf's with
 the reference's leading layer entry dropped (the port has one module a
 layer); `batch_pspecs`, `activation_rules` (every kind, with a batch that
 divides the data-parallel extent, one that does not, none, and
-long_500k's batch 1) and `dp_axes` must be equal. Specs are compared
+long_500k's batch 1) and `dp_axes` must be equal; a block alone must be
+placed as it is inside its model (`init_fn(mesh=)` places each block as
+it is drawn), and `input_axes` must be the reference's `_flat_axes` for a
+GNN batch and `dp_axes` otherwise. Specs are compared
 entry by entry, an entry as the tuple of mesh axes that split its dim
 (None = (), "data" = ("data",)): that is what a spec means to both."""
 import pytest
@@ -116,6 +119,33 @@ def test_param_pspecs_equal_the_reference(arch, mesh_id, port_models):
             assert tuple(p.shape) == shape, name
         assert norm(mine[name], p.dim()) == want, (name, mine[name], spec)
     assert seen == set(theirs)
+
+
+LM_ARCHS = [a for a in ARCHS if jregistry.get_config(a).family == "lm"]
+
+
+@pytest.mark.parametrize("mesh_id", list(MESHES))
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_a_block_alone_is_placed_as_inside_the_model(arch, mesh_id,
+                                                     port_models):
+    """`init_fn(mesh=)` places each block as soon as it is drawn, by the
+    specs of the block alone: they must be its specs inside the model."""
+    mesh = MESHES[mesh_id]
+    bundle, model = port_models[arch]
+    whole = policy.param_pspecs(model, bundle.cfg, mesh)
+    for i, blk in enumerate(model.blocks):
+        for name, spec in policy.param_pspecs(blk, bundle.cfg, mesh).items():
+            assert whole[f"blocks.{i}.{name}"] == spec, (name, spec)
+
+
+@pytest.mark.parametrize("mesh_id", list(MESHES))
+def test_input_axes_split_a_gnn_batch_over_every_axis(mesh_id):
+    """`distribute_inputs` splits a GNN batch over the reference's
+    `_flat_axes` (every axis), any other family's over `dp_axes`."""
+    mesh = MESHES[mesh_id]
+    assert policy.input_axes("gnn", mesh) == jpolicy._flat_axes(mesh)
+    for family in ("lm", "recsys"):
+        assert policy.input_axes(family, mesh) == jpolicy.dp_axes(mesh)
 
 
 @pytest.mark.parametrize("mesh_id", list(MESHES))

@@ -4,6 +4,7 @@ directory as numpy and JSON files for the tests to hold against the JAX
 package:
 
     python tests/torch_dist_cases.py ranks OUT     # 4 gloo ranks, (2, 2)
+    python tests/torch_dist_cases.py gnn OUT       # 4 gloo ranks, (2, 2)
     python tests/torch_dist_cases.py dryrun OUT    # fake groups of 8 and 1
 
 `ranks` spawns four gloo CPU ranks on a (data, model) = (2, 2) mesh; each
@@ -13,6 +14,17 @@ policy, bert4rec's sharded `score_next`, decode steps over caches sharded
 by `cache_bsnd` (and MLA's by its batch entry), `compressed_psum` and
 `compressed_allreduce_tree` on seeded per-rank inputs, and a checkpoint
 of the distributed model. Rank 0 writes the results.
+
+`gnn` spawns four gloo CPU ranks on (2, 2) and trains each reduced GNN of
+GNN_CELLS one float32 step through the policy (nodes, edges and
+triplets split over both mesh dims, flattened to one, parameters whole), from the weights
+OUT/<arch>-<shape>.npz when the caller wrote them (else the seed-0 init),
+under `IndexGuard`: every op DTensor dispatches in the step is recorded,
+and the index, gather, scatter and embedding ops that meet a DTensor are
+listed (those with one dim split over two mesh dims marked). Rank 0 writes the loss,
+gnorm, updated parameters and the guard's lists. Then reduced qwen3-moe
+placed block by block as it is drawn (`init_fn(mesh=)`) is compared with
+the same model placed whole.
 
 `dryrun` traces reduced cells, the engine cell and a known sequence of
 redistributes on fake groups of 8 ranks ((4, 2)) and of 1 ((1, 1)).
@@ -36,6 +48,9 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 32
 DECODE_BATCH, DECODE_LEN, DECODE_STEPS = 4, 64, 4
 N_ITEMS = 512
 TIMEOUT = datetime.timedelta(seconds=240)
+GNN_CELLS = (("gatedgcn", "full_graph_sm"), ("gatedgcn", "molecule"),
+             ("nequip", "molecule"), ("equiformer-v2", "molecule"),
+             ("dimenet", "molecule"))
 
 
 def train_batch(vocab: int) -> np.ndarray:
@@ -56,19 +71,123 @@ def decode_inputs(vocab: int) -> dict:
                                     DECODE_BATCH).astype(np.int32)}
 
 
-def _rank(rank: int, port: int, out: str) -> None:
+def _rank(rank: int, port: int, out: str, mode: str = "ranks") -> None:
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=WORLD, rank=rank, timeout=TIMEOUT)
     try:
-        results = _cases(rank, out)
+        results = (_cases if mode == "ranks" else _gnn_cases)(rank, out)
         if rank == 0:
-            np.savez(os.path.join(out, "ranks.npz"), **results.pop("arrays"))
-            with open(os.path.join(out, "ranks.json"), "w") as f:
+            np.savez(os.path.join(out, f"{mode}.npz"),
+                     **results.pop("arrays"))
+            with open(os.path.join(out, f"{mode}.json"), "w") as f:
                 json.dump(results, f)
     finally:
         dist.destroy_process_group()
+
+
+class IndexGuard:
+    """A dispatch mode over a block: counts the ops dispatched with a
+    DTensor argument and lists each index, gather, scatter or embedding op
+    (forward or backward) dispatched with one, marking those of whose
+    DTensor arguments has a tensor dim split over two or more mesh dims,
+    which DTensor in some torch releases (2.11) cannot place. The port's
+    GNNs run every such op on each rank's own rows, on plain tensors."""
+
+    OPS = ("index", "gather", "scatter", "embedding", "take")
+
+    def __init__(self):
+        self.ops, self.backward_ops, self.names, self.flagged = 0, 0, set(), []
+
+    def __enter__(self):
+        from torch.distributed.tensor import DTensor, Shard
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+        guard = self
+
+        def twice_split(t) -> bool:
+            dims = [p.dim for p in t.placements if isinstance(p, Shard)]
+            return len(dims) != len(set(dims))
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                dts = [a for a in tree_leaves((args, kwargs))
+                       if isinstance(a, DTensor)]
+                if dts:
+                    name = func.overloadpacket.__name__.strip("_")
+                    guard.ops += 1
+                    # an op of the autograd engine's backward pass
+                    guard.backward_ops += \
+                        torch._C._current_graph_task_id() != -1
+                    guard.names.add(name)
+                    if name.startswith(IndexGuard.OPS):
+                        guard.flagged.append(
+                            [str(func), [str(list(t.placements))
+                                         for t in dts],
+                             any(twice_split(t) for t in dts)])
+                return func(*args, **kwargs)
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def _gnn_cases(rank: int, out: str) -> dict:
+    from repro_torch.distributed import policy
+    from repro_torch.distributed.sharding import full, sharding_ctx
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.api import build_bundle
+    from repro_torch.config import GNN_SHAPES
+
+    mesh = make_local_mesh(2, 2, device="cpu")
+    res = {"arrays": {}}
+    for arch, shape in GNN_CELLS:
+        key = f"{arch}-{shape}"
+        b = build_bundle(arch, reduced=True, device="cpu")
+        model = b.init_fn_for(shape)(0)
+        weights = os.path.join(out, f"{key}.npz")
+        if os.path.exists(weights):
+            model.load_state_dict({k: torch.from_numpy(v) for k, v
+                                   in np.load(weights).items()}, strict=True)
+        flat = policy.placement_mesh("gnn", mesh)
+        policy.distribute_model(model, b.cfg, flat)
+        kind = GNN_SHAPES[shape]["kind"]
+        batch = policy.distribute_inputs(b.make_inputs(shape), flat, "gnn")
+        state = b.optimizer.init(dict(model.named_parameters()))
+        rules = policy.activation_rules(b.cfg, flat, kind)
+        with IndexGuard() as guard, sharding_ctx(flat, rules):
+            _, state, m = b.steps[kind](model, state, batch)
+        res[key] = {"loss": float(m["loss"]), "gnorm": float(m["gnorm"]),
+                    "mesh": dict(zip(flat.mesh_dim_names, flat.shape)),
+                    "dtensor_ops": guard.ops,
+                    "backward_dtensor_ops": guard.backward_ops,
+                    "op_names": sorted(guard.names),
+                    "flagged": guard.flagged,
+                    "placements": {k: [str(p) for p in v.placements]
+                                   for k, v in batch.items()}}
+        for k, v in model.named_parameters():
+            res["arrays"][f"{key}/{k}"] = full(v.detach()).numpy()
+    # an LM placed block by block as it is drawn (`init_fn(mesh=)`) against
+    # the same model placed whole
+    lb = build_bundle("qwen3-moe-30b-a3b", reduced=True, device="cpu")
+    by_block = lb.init_fn(0, mesh=mesh)
+    whole = policy.distribute_model(lb.init_fn(0), lb.cfg, mesh)
+    wp = dict(whole.named_parameters())
+    res["placed_init"] = {
+        "names_equal": sorted(wp) == sorted(
+            k for k, _ in by_block.named_parameters()),
+        "placements_equal": all(
+            tuple(p.placements) == tuple(wp[k].placements)
+            for k, p in by_block.named_parameters()),
+        "values_equal": all(torch.equal(full(p.detach()), full(wp[k].detach()))
+                            for k, p in by_block.named_parameters()),
+        "experts": [str(q) for q in by_block.blocks[0].ffn.wi.placements]}
+    return res
 
 
 def _cases(rank: int, out: str) -> dict:
@@ -216,9 +335,13 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(out: str) -> None:
+def run_ranks(out: str, mode: str = "ranks") -> None:
     import torch.multiprocessing as mp
-    mp.spawn(_rank, args=(free_port(), out), nprocs=WORLD, join=True)
+    mp.spawn(_rank, args=(free_port(), out, mode), nprocs=WORLD, join=True)
+
+
+def run_gnn(out: str) -> None:
+    run_ranks(out, "gnn")
 
 
 # ------------------------------------------------------------------ dryrun
@@ -239,7 +362,8 @@ def run_dryrun(out: str) -> None:
     dryrun.build_bundle = build_reduced
     cells = [("qwen2-1.5b", "train_4k"), ("qwen2-1.5b", "decode_32k"),
              ("qwen2-1.5b", "prefill_32k"), ("bert4rec", "serve_p99"),
-             ("gatedgcn", "full_graph_sm")]
+             ("gatedgcn", "full_graph_sm"), ("nequip", "molecule"),
+             ("equiformer-v2", "molecule"), ("dimenet", "molecule")]
     for world, shape in ((8, (4, 2)), (1, (1, 1))):
         with dryrun.fake_world(world):
             mesh = init_device_mesh("cpu", shape,
@@ -319,4 +443,4 @@ if __name__ == "__main__":
     sys.path.insert(0, str(ROOT / "src"))
     mode, out_dir = sys.argv[1], sys.argv[2]
     os.makedirs(out_dir, exist_ok=True)
-    {"ranks": run_ranks, "dryrun": run_dryrun}[mode](out_dir)
+    {"ranks": run_ranks, "gnn": run_gnn, "dryrun": run_dryrun}[mode](out_dir)
