@@ -12,14 +12,18 @@ Phases, in order; any failure exits non-zero:
               libraries' flags are unchanged) prints each kernel's
               registers, spills and shared memory;
   3. kernels — hold each kernel against its plain torch version on the card.
-              The bitmap kernels bit for bit. The old contracts
+              The bitmap kernels bit for bit, each entry with an extend at
+              every word-block width of FUSED_TILE_WIDTHS (32, 64, 128:
+              one compiled instantiation each) against its plain version,
+              which has no width. The old contracts
               (bitmap_intersect, fused_expand_intersect): k in 1..4 tables,
               ragged widths, all-zero and all-one rows, T = 256, and for
               the fused entry K0 = 0 and slots through both kinds of
               indirection. The new entry points (tile_intersect,
               expand_select, expand_intersect) over the grid of
               `check_new_kernels`: k 1..4, K0 0, 1, 4, W 1, 33, 82, 246,
-              T_in 1, 37, 256, 1000 and 10,000 against T_out = 256,
+              T_in 1, 37, 256, 1000 (at widths 32 and 64: 1 and 256) and
+              10,000 against T_out = 256,
               starts at 0, mid, total - 1, total and past it, empty,
               sparse, dense and all-one frontiers, negative index entries
               and same-label clears on the bitpos column.
@@ -55,7 +59,18 @@ Phases, in order; any failure exits non-zero:
               scale-1.0 dblp queries are then counted once more with
               `mesh="auto"` (`check_mesh_auto`): over this host's visible
               cards it must take the single-device path, with the count
-              and every VectorStats field of the `mesh=None` run;
+              and every VectorStats field of the `mesh=None` run.
+              Widths: on "auto" every bitmap launch is at the default
+              width (128); on "fused" each fused boundary's engine build
+              autotunes its width on the card (`autotune_words_per_block`,
+              whose sweep launches expand_intersect at every width: those
+              launches are in the route's count, and the wrapper counts
+              them by width where it launches them, apart from the
+              path's) and its expand_intersect
+              launches are all at the width it picked; each pick is
+              printed. The dblp size-8 query is then counted on "fused"
+              at each width forced (`drive_widths`): the autotuned run's
+              count and every VectorStats field;
   4b. superbatch and compat paths — on the same scale-1.0 dblp, a mix of
               `random_query` (size, seed) pairs MIX: five size-4 queries
               that must form one bucket, a size-8 query twice (a bucket
@@ -296,8 +311,11 @@ Phases, in order; any failure exits non-zero:
               words, 65,536 rows) on each rank's local shards through
               `bitmap_intersect` (launches counted), R and pop
               bit-identical to the plain version and to bitmap_intersect
-              over the whole tables, then timed on the rank's shard beside
-              its plain version (the kernels line's bitmap_intersect row).
+              over the whole tables at every word-block width (each
+              width's launches on the cell's path and difference from the
+              plain version recorded), then timed on the rank's shard at
+              every width beside its plain version (the kernels line's
+              bitmap_intersect rows).
               Then each GNN (gatedgcn, nequip, dimenet, equiformer-v2) at
               its published width on the shape phase 5d runs faster
               (PLACE_GNN_SHAPES), float32, TF32 off: one train step
@@ -320,14 +338,18 @@ Phases, in order; any failure exits non-zero:
               and the share of the bound. The bitmap kernels at the dblp
               size-8 plan's widest extend and at eu2005's widest shape
               (synthetic 6,138 x 246 tables, k = 2), warm and with the L2
-              flushed before each call; tile_intersect's query lane at
+              flushed before each call, each entry with an extend
+              (fused_expand_intersect over expand_select's selection) at
+              every word-block width; tile_intersect's query lane at
               the mix's size-4 bucket's widest extend beside the
               lane-free call on the same tables. The launch floor: an empty
               `torch.cuda._sleep(0)` kernel back to back, and alone after
               an L2 flush;
   7. summary — the kernels line, the card, one JSON line of per-kernel
-              numbers (flash_decode's with phase 5a's and 5c's launches
-              and its times at their shapes; flash_decode_partials' and
+              numbers (one row a bitmap entry and width, with the
+              launches at that width; flash_decode's with phase 5a's and
+              5c's launches and its times at their shapes;
+              flash_decode_partials' and
               flash_decode_merge's from phase 5a's sharded check; each row
               with phase 5d's 0 launches by path and phase 5e's
               launches; the partials' and merge's with phase 5e's held
@@ -596,7 +618,7 @@ REFERENCE_SHARD = {'dblp': {'8': {'2': {'count': 1000000,
 # The route whose launch count each bitmap kernel reports (tile_intersect
 # runs on both routes)
 KERNEL_ROUTE = {"tile_intersect": "auto", "expand_select": "auto",
-                "expand_intersect": "fused"}
+                "expand_intersect": "fused", "fused_expand_intersect": "fused"}
 
 LM_ARCH = "qwen2-1.5b"
 SERVE_BATCH, SERVE_TOKENS = 4, 16      # the reference launcher's defaults
@@ -765,9 +787,10 @@ def max_abs_err(got, want) -> int:
                if g.numel() else 0 for g, w in zip(got, want))
 
 
-def check_kernels(bi, ref, dev) -> dict:
-    """Every kernel against its plain version, bit for bit. Returns the
-    largest absolute difference seen per kernel (0 when they agree)."""
+def check_kernels(bi, ref, dev, wpb: int) -> dict:
+    """The old contracts at word-block width `wpb` against their plain
+    versions, bit for bit. Returns the largest absolute
+    difference seen per kernel (0 when they agree)."""
     gen = np.random.default_rng(0)
     t = TILE_ROWS
     errs = {"bitmap_intersect": 0, "fused_expand_intersect": 0}
@@ -791,14 +814,15 @@ def check_kernels(bi, ref, dev) -> dict:
                 idxs = torch.from_numpy(np.stack(
                     [gen.integers(0, x.shape[0], t) for x in tabs], 1
                 ).astype(np.int32)).to(dev)
-                got = bi.bitmap_intersect(tabs, idxs)
+                got = bi.bitmap_intersect(tabs, idxs, words_per_block=wpb)
                 want = ref.bitmap_intersect_ref(tabs, idxs)
                 torch.cuda.synchronize()
                 err = max_abs_err(got, want)
                 errs["bitmap_intersect"] = max(errs["bitmap_intersect"], err)
                 if err:
                     raise SystemExit(f"bitmap_intersect disagrees: k={k} "
-                                     f"w={w} {fill} max_abs_err={err}")
+                                     f"w={w} {fill} width {wpb} "
+                                     f"max_abs_err={err}")
                 for k0 in (0, 1, 3):
                     # slot k0 reads bitpos; slots < k0 read parent columns
                     slots = [min(j, k0) for j in range(k)][::-1]
@@ -811,7 +835,8 @@ def check_kernels(bi, ref, dev) -> dict:
                     bitpos = torch.from_numpy(gen.integers(
                         0, s_min, t).astype(np.int32)).to(dev)
                     got = bi.fused_expand_intersect(tabs, idx, rows, bitpos,
-                                                    slots)
+                                                    slots,
+                                                    words_per_block=wpb)
                     want = ref.fused_expand_intersect_ref(
                         tabs, idx, rows, bitpos, slots=slots)
                     torch.cuda.synchronize()
@@ -821,7 +846,7 @@ def check_kernels(bi, ref, dev) -> dict:
                     if err:
                         raise SystemExit(
                             f"fused_expand_intersect disagrees: k={k} w={w} "
-                            f"{fill} k0={k0} slots={slots} "
+                            f"{fill} k0={k0} slots={slots} width {wpb} "
                             f"max_abs_err={err}")
     return errs
 
@@ -840,18 +865,21 @@ def frontier_bits(gen, t_in, w_in, fill) -> np.ndarray:
     return (bits << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
 
 
-def check_new_kernels(bi, ref, dev) -> tuple[dict, int]:
+def check_new_kernels(bi, ref, dev, wpb: int) -> tuple[dict, int]:
     """tile_intersect, expand_select and expand_intersect against their
-    plain versions, bit for bit: k in 1..4 tables, K0 in {0, 1, 4} parent
-    columns (entries from -5 on: negative keys count from the table's end,
-    negative clear values clear nothing), W in {1, 33, 82, 246},
-    T_in in {1, 37, 256, 1000} against T_out = 256, plus T_in = 10,000
-    (its scan leaves shared memory for global scratch), start at 0, the
-    middle, total - 1, total and past it, empty, sparse, dense and all-one
-    frontiers, and same-label clears on the bitpos column (slot K0) and on
-    parent columns. Returns the largest difference per kernel and the
-    number of cases."""
+    plain versions, bit for bit, the two with an extend at word-block width
+    `wpb`: k in 1..4 tables,
+    K0 in {0, 1, 4} parent columns (entries from -5 on: negative keys count
+    from the table's end, negative clear values clear nothing), W in {1,
+    33, 82, 246}, T_in in {1, 37, 256, 1000} against T_out = 256 (at a
+    width other than the default {1, 256}, and no expand_select, which
+    takes no width), plus T_in = 10,000 (its scan leaves shared memory for
+    global scratch), start at 0, the middle, total - 1, total and past it,
+    empty, sparse, dense and all-one frontiers, and same-label clears on
+    the bitpos column (slot K0) and on parent columns. Returns the largest
+    difference per kernel and the number of cases."""
     gen = np.random.default_rng(5)
+    default = wpb == bi.DEFAULT_WORDS_PER_BLOCK
     errs = {"tile_intersect": 0, "expand_select": 0, "expand_intersect": 0}
     n = 0
 
@@ -868,7 +896,8 @@ def check_new_kernels(bi, ref, dev) -> tuple[dict, int]:
             raise SystemExit(f"{name} disagrees: {where} max_abs_err={err}")
 
     grid = [(k, k0, w, t_in) for k in (1, 2, 3, 4) for k0 in (0, 1, 4)
-            for w in (1, 33, 82, 246) for t_in in (1, 37, 256, 1000)]
+            for w in (1, 33, 82, 246)
+            for t_in in ((1, 37, 256, 1000) if default else (1, 256))]
     grid += [(k, k0, w, 10_000) for k in (1, 2) for k0 in (0, 4)
              for w in (1, 33)]
     for k, k0, w, t_in in grid:
@@ -882,9 +911,10 @@ def check_new_kernels(bi, ref, dev) -> tuple[dict, int]:
             t_slots = [min(s, k0 - 1) for s in slots]
             t_clears = [0, k0 - 1]
             held("tile_intersect",
-                 bi.tile_intersect(tabs, idx, t_slots, t_clears),
+                 bi.tile_intersect(tabs, idx, t_slots, t_clears,
+                                   words_per_block=wpb),
                  ref.tile_intersect_ref(tabs, idx, t_slots, t_clears),
-                 f"k={k} K={k0} W={w} T={t_in}")
+                 f"k={k} K={k0} W={w} T={t_in} width {wpb}")
         for fill in ("empty", "sparse", "dense", "ones"):
             bits = frontier_bits(gen, t_in, w, fill)
             r = on_card(bits)
@@ -892,20 +922,23 @@ def check_new_kernels(bi, ref, dev) -> tuple[dict, int]:
             for start in sorted({0, total // 2, max(total - 1, 0), total,
                                  total + 7}):
                 where = (f"k={k} K0={k0} W={w} T_in={t_in} {fill} "
-                         f"start={start} total={total}")
+                         f"start={start} total={total} width {wpb}")
                 args = (r, start, TILE_ROWS, idx)
-                held("expand_select", bi.expand_select(*args),
-                     ref.expand_select_ref(*args), where)
+                if default:
+                    held("expand_select", bi.expand_select(*args),
+                         ref.expand_select_ref(*args), where)
                 held("expand_intersect",
-                     bi.expand_intersect(*args, tabs, slots, clears),
+                     bi.expand_intersect(*args, tabs, slots, clears,
+                                         words_per_block=wpb),
                      ref.expand_intersect_ref(*args, tabs, slots, clears),
                      where)
     return errs, n
 
 
-def check_lane(bi, ref, dev) -> tuple[int, int]:
-    """tile_intersect with a query lane against its plain version, bit for
-    bit: Q in {1, 2, 5, 8} stacked queries, k in 1..4 tables, W in
+def check_lane(bi, ref, dev, wpb: int) -> tuple[int, int]:
+    """tile_intersect with a query lane at word-block width `wpb` against
+    its plain version, bit for bit: Q in {1, 2, 5, 8}
+    stacked queries, k in 1..4 tables, W in
     {1, 33, 128}, T = 256 rows, query ids from -Q - 2 to Q + 2 and keys
     from -45 to 44 (negative ones count from the end, past the end clamp,
     each on its own axis), same-label clears on and off. Returns the
@@ -926,7 +959,7 @@ def check_lane(bi, ref, dev) -> tuple[int, int]:
                 slots = [int(x) for x in gen.integers(1, 4, k)]
                 for clears in ([3, slots[0]], []):
                     got = bi.tile_intersect(tabs, idx, slots, clears,
-                                            qid_slot=0)
+                                            qid_slot=0, words_per_block=wpb)
                     want = ref.tile_intersect_ref(tabs, idx, slots, clears,
                                                   qid_slot=0)
                     torch.cuda.synchronize()
@@ -935,7 +968,8 @@ def check_lane(bi, ref, dev) -> tuple[int, int]:
                     if err:
                         raise SystemExit(
                             f"tile_intersect lane disagrees: Q={q} k={k} "
-                            f"W={w} clears={clears} max_abs_err={err}")
+                            f"W={w} clears={clears} width {wpb} "
+                            f"max_abs_err={err}")
     return worst, n
 
 
@@ -1056,14 +1090,56 @@ class PathCalls:
                 setattr(self.prog_cls, name, fn)
 
 
+class AutotuneLog:
+    """Records, while active, the width each fused boundary's engine build
+    gets from `autotune_words_per_block`: one {"k", "W", "width"} a
+    call."""
+
+    def __init__(self, bi):
+        self.bi, self.picks = bi, []
+
+    def __enter__(self):
+        self.saved = tune = self.bi.autotune_words_per_block
+
+        def logged(k, w, **kwargs):
+            got = tune(k, w, **kwargs)
+            self.picks.append({"k": k, "W": w, "width": got})
+            return got
+
+        self.bi.autotune_words_per_block = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.bi.autotune_words_per_block = self.saved
+
+
+def launches_by_width(bi) -> dict:
+    """Each width-taking wrapper's launches by width since the last
+    reset."""
+    return {fn.__name__: dict(fn.launches_by_width)
+            for fn in bi.WIDTH_WRAPPERS}
+
+
+def sweep_counts(bi) -> dict:
+    """The autotune sweeps' expand_intersect launches since the last
+    reset, as the wrapper counted them where it launched: their total
+    ("sweep_launches") and by width ("sweep_by_width")."""
+    by_width = dict(bi.expand_intersect.sweep_launches_by_width)
+    return {"sweep_launches": sum(by_width.values()),
+            "sweep_by_width": by_width}
+
+
 def drive(bi, engine_mod, bitops_mod, work, intersect: str):
     """One intersect route of the main path: every workload through
     Matcher.count, with the launch counts set to 0 just before and read
     just after, and the path's kernel work counted by `PathCalls` (the
-    route's engines are built here). Returns the per-run lines (with the
-    full VectorStats), the route's launch counts and its path calls."""
+    route's engines are built here, so the fused route's autotune sweeps
+    run here: their expand_intersect launches are in the route's count
+    and in the calls' "sweep_launches"). Returns the per-run lines (with
+    the full VectorStats), the route's launch counts, its path calls and
+    {"by_width": launches by width, "picks": the autotune's picks}."""
     runs = []
-    with PathCalls(engine_mod, bitops_mod) as path:
+    with PathCalls(engine_mod, bitops_mod) as path, AutotuneLog(bi) as tuned:
         bi.reset_launches()
         for w in work:
             t0 = time.perf_counter()
@@ -1081,20 +1157,23 @@ def drive(bi, engine_mod, bitops_mod, work, intersect: str):
                          "elapsed_s": out.elapsed_s,
                          "stats": dataclasses.asdict(out.stats)})
         launches = {fn.__name__: fn.launches for fn in bi.WRAPPERS}
-    return runs, launches, dict(path.calls)
+        widths = {"by_width": launches_by_width(bi), "picks": tuned.picks}
+        calls = dict(path.calls, **sweep_counts(bi))
+    return runs, launches, calls, widths
 
 
 def check_launches(route: str, launches: dict, calls: dict) -> None:
     """Each kernel of the route launched once per boundary or extend it
     covers, and the torch expand_select never ran on the card: on "auto"
     expand_select once per boundary expansion; on "fused" expand_intersect
-    once per fused boundary and expand_select once per other boundary; on
-    both tile_intersect once per pair extend computed (the fused
-    boundary's extend is computed by expand_intersect); the old entry
-    points never."""
+    once per fused boundary (plus the autotune sweeps' launches, at least
+    one sweep) and expand_select once per other boundary; on both
+    tile_intersect once per pair extend computed (the fused boundary's
+    extend is computed by expand_intersect); the old entry points
+    never."""
     want = {"tile_intersect": calls["pair_compute"],
             "expand_select": calls["expand"],
-            "expand_intersect": calls["fused"],
+            "expand_intersect": calls["fused"] + calls["sweep_launches"],
             "bitmap_intersect": 0, "fused_expand_intersect": 0}
     if launches != want:
         raise SystemExit(f"{route}: launches {launches}, expected one per "
@@ -1105,8 +1184,9 @@ def check_launches(route: str, launches: dict, calls: dict) -> None:
     for name in needed:
         if launches[name] <= 0:
             raise SystemExit(f"{name} never launched on the {route} route")
-    if route == "auto" and calls["fused"]:
-        raise SystemExit(f"auto route fused {calls['fused']} boundaries")
+    if route == "auto" and (calls["fused"] or calls["sweep_launches"]):
+        raise SystemExit(f"auto route fused {calls['fused']} boundaries, "
+                         f"swept {calls['sweep_launches']} launches")
     if calls["torch_expand_select_on_card"]:
         raise SystemExit(f"{route}: the torch expand_select ran "
                          f"{calls['torch_expand_select_on_card']} times on "
@@ -1140,6 +1220,90 @@ def check_runs(by_route: dict) -> None:
             raise SystemExit(f"{a['dataset']} scale {a['scale']} size "
                              f"{a['query_size']}: VectorStats differ "
                              f"between routes: {diff}")
+
+
+def path_by_width(by_width: dict, calls: dict) -> dict:
+    """expand_intersect's launches by width without the autotune sweeps',
+    each width's less the sweeps' launches at that width."""
+    return {wpb: n - calls["sweep_by_width"][wpb]
+            for wpb, n in by_width["expand_intersect"].items()}
+
+
+def check_widths(bi, by_width: dict, picks: list, calls: dict, route: str,
+                 forced: int | None = None) -> None:
+    """A route's launches by width: every entry but expand_intersect at the
+    default width only; expand_intersect, the sweeps' launches aside, once
+    per fused boundary, each at a width its engine build picked (`forced`:
+    the forced width), each pick a member of FUSED_TILE_WIDTHS."""
+    default = bi.DEFAULT_WORDS_PER_BLOCK
+    for name, counts in by_width.items():
+        if name != "expand_intersect" and any(
+                n for wpb, n in counts.items() if wpb != default):
+            raise SystemExit(f"{route}: {name} launched at widths {counts}")
+    path = path_by_width(by_width, calls)
+    picked = {p["width"] for p in picks}
+    if (any(n < 0 or (n and wpb not in picked) for wpb, n in path.items())
+            or sum(path.values()) != calls["fused"]):
+        raise SystemExit(f"{route}: expand_intersect at widths {path} "
+                         f"(sweeps aside) for {calls['fused']} fused "
+                         f"boundaries and picks {sorted(picked)}")
+    if not picked <= set(bi.FUSED_TILE_WIDTHS) or (
+            forced is not None and picked - {forced}):
+        raise SystemExit(f"{route}: autotune picks {picks}")
+    if route == "auto" and picks:
+        raise SystemExit(f"auto route asked the autotune: {picks}")
+
+
+def drive_widths(api, bi, engine_mod, bitops_mod, work, fused_runs) -> dict:
+    """Phase 4's scale-1.0 dblp size-8 query on intersect="fused" once
+    more at each width of FUSED_TILE_WIDTHS, forced by patching the
+    engine's `autotune_words_per_block` to return it, each on a fresh
+    Matcher over the same Dataset (its engine built anew), with the launch
+    counts set to 0 just before and read just after. Each run must give
+    the fused route's count and every VectorStats field, and launch
+    expand_intersect once per fused boundary, all at the forced width."""
+    w = next(x for x in work if (x["dataset"], x["scale"], x["query_size"])
+             == ("dblp", 1.0, 8))
+    want = next(r for r in fused_runs
+                if (r["dataset"], r["scale"], r["query_size"])
+                == ("dblp", 1.0, 8))
+    saved, out = bi.autotune_words_per_block, {}
+    for wpb in bi.FUSED_TILE_WIDTHS:
+        bi.autotune_words_per_block = \
+            lambda k, w_, *, device, _wpb=wpb: _wpb
+        try:
+            with PathCalls(engine_mod, bitops_mod) as path, \
+                    AutotuneLog(bi) as tuned:
+                bi.reset_launches()
+                t0 = time.perf_counter()
+                res = api.Matcher(w["matcher"].dataset).count(
+                    w["query"], engine="vector", intersect="fused",
+                    limit=LIMIT)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {fn.__name__: fn.launches for fn in bi.WRAPPERS}
+                by_width = launches_by_width(bi)
+                calls = dict(path.calls, **sweep_counts(bi))
+        finally:
+            bi.autotune_words_per_block = saved
+        stats = dataclasses.asdict(res.stats)
+        if res.count != want["count"] or stats != want["stats"]:
+            diff = {k: (v, stats[k]) for k, v in want["stats"].items()
+                    if v != stats[k]}
+            raise SystemExit(f"fused at width {wpb}: count {res.count} "
+                             f"against {want['count']}, VectorStats "
+                             f"differ: {diff}")
+        check_launches(f"fused at width {wpb}", launches, calls)
+        check_widths(bi, by_width, tuned.picks, calls,
+                     f"fused at width {wpb}", forced=wpb)
+        if not tuned.picks or calls["sweep_launches"]:
+            raise SystemExit(f"fused at width {wpb}: {len(tuned.picks)} "
+                             f"boundaries built, {calls['sweep_launches']} "
+                             f"sweep launches")
+        out[wpb] = {"count": res.count, "wall_s": wall, "launches": launches,
+                    "by_width": by_width, "path_calls": calls,
+                    "boundaries_built": len(tuned.picks)}
+    return out
 
 
 def mix_queries(ds) -> list:
@@ -3004,12 +3168,21 @@ def bitmap_shapes(plan, tables, dev) -> dict:
                    on_card(gen.integers(0, 6_138, (t, 4)).astype(np.int32)))}
 
 
-def io_bytes(name, tabs, slots, r, idx, out) -> int:
+def io_bytes(name, tabs, slots, r, idx, out, sel=None) -> int:
     """Bytes the call must move at these inputs: each input byte it needs
     read once (the frontier, the parent rows and table rows its keys
-    select, distinct rows counted once) and each output written once."""
+    select, distinct rows counted once; for fused_expand_intersect the
+    given selection `sel` = (rows, bitpos) instead of the frontier) and
+    each output written once."""
     t = TILE_ROWS
     w = tabs[0].shape[1]
+    if name == "fused_expand_intersect":
+        rows, bitpos = sel
+        parent = idx[rows.long()]
+        cols = torch.cat([parent, bitpos[:, None]], dim=1)
+        gathered = sum(int(torch.unique(cols[:, s]).numel()) for s in slots)
+        return (t * 8 + int(torch.unique(rows).numel()) * idx.shape[1] * 4
+                + gathered * w * 4 + t * w * 4 + t * 4)
     if name == "tile_intersect":
         keys = idx[:, slots]
         rows = sum(int(torch.unique(keys[:, j]).numel())
@@ -3027,73 +3200,114 @@ def io_bytes(name, tabs, slots, r, idx, out) -> int:
     return nbytes
 
 
-def time_kernels(bi, ref, cq, dev, launches, errs, floors) -> list:
-    """tile_intersect, expand_select and expand_intersect at the two shapes
-    of `bitmap_shapes`, warm (median_ms) and with the L2 flushed
-    (flushed_ms), beside their plain versions, their bounds and the launch
-    floors; and the host's time a call (host_us), the kernel's and the
-    plain version's, since the matcher waits on the host."""
+def time_kernels(bi, ref, cq, dev, launches, errs_by_width, floors,
+                 widths, forced) -> list:
+    """tile_intersect, expand_select, expand_intersect and (the old
+    contract over a given selection) fused_expand_intersect at the two
+    shapes of `bitmap_shapes`, each with an extend at every word-block
+    width, warm (median_ms) and with the L2 flushed (flushed_ms), beside
+    their plain versions (which have no width: timed once an entry and
+    shape), their bounds and the launch floors; and, at the default width,
+    the host's time a call (host_us), the kernel's and the plain
+    version's, since the matcher waits on the host. One row an entry and
+    width: its launches at that width on the entry's route of phase 4
+    (KERNEL_ROUTE; expand_intersect's with the autotune sweeps') and in
+    the forced-width run at that width."""
     from repro_torch.core.engine import upload_plan
     tables, _ = upload_plan(cq.plan, dev)
     flush = torch.empty(100 * 2 ** 20, dtype=torch.int8, device=dev)
     t = TILE_ROWS
-    per = {name: {} for name in KERNEL_ROUTE}
+    default = bi.DEFAULT_WORDS_PER_BLOCK
+    keys = [("expand_select", default)] + [
+        (name, wpb) for name in ("tile_intersect", "expand_intersect",
+                                 "fused_expand_intersect")
+        for wpb in bi.FUSED_TILE_WIDTHS]
+    per = {key: {} for key in keys}
     for shape, (tabs, slots, r, idx) in bitmap_shapes(cq.plan, tables,
                                                       dev).items():
         k0 = idx.shape[1]
         t_idx = torch.cat([idx, idx[:, :1]], dim=1).contiguous()
-        specs = {
-            "tile_intersect": (
-                lambda: bi.tile_intersect(tabs, t_idx, slots, [k0]),
-                lambda: ref.tile_intersect_ref(tabs, t_idx, slots, [k0])),
-            "expand_select": (
-                lambda: bi.expand_select(r, 0, t, idx),
-                lambda: ref.expand_select_ref(r, 0, t, idx)),
-            "expand_intersect": (
-                lambda: bi.expand_intersect(r, 0, t, idx, tabs, slots, [k0]),
-                lambda: ref.expand_intersect_ref(r, 0, t, idx, tabs, slots,
-                                                 [k0])),
-        }
-        for name, (kern, plain) in specs.items():
+        rows, bitpos = bi.expand_select(r, 0, t, idx)[:2]
+
+        def specs(name, wpb):
+            if name == "tile_intersect":
+                return (lambda: bi.tile_intersect(tabs, t_idx, slots, [k0],
+                                                  words_per_block=wpb),
+                        lambda: ref.tile_intersect_ref(
+                            tabs, t_idx, slots, [k0]))
+            if name == "expand_select":
+                return (lambda: bi.expand_select(r, 0, t, idx),
+                        lambda: ref.expand_select_ref(r, 0, t, idx))
+            if name == "expand_intersect":
+                return (lambda: bi.expand_intersect(
+                            r, 0, t, idx, tabs, slots, [k0],
+                            words_per_block=wpb),
+                        lambda: ref.expand_intersect_ref(
+                            r, 0, t, idx, tabs, slots, [k0]))
+            return (lambda: bi.fused_expand_intersect(
+                        tabs, idx, rows, bitpos, slots, words_per_block=wpb),
+                    lambda: ref.fused_expand_intersect_ref(
+                        tabs, idx, rows, bitpos, slots=slots))
+
+        plain_ms = {}
+        for name, wpb in keys:
+            kern, plain = specs(name, wpb)
+            if name not in plain_ms:
+                plain_ms[name] = median_ms(plain)
             out = kern()
             err = max_abs_err(out, plain())
             if err:
-                raise SystemExit(f"{name} disagrees at the {shape} shape")
+                raise SystemExit(f"{name} disagrees at the {shape} shape, "
+                                 f"width {wpb}")
             nbytes = io_bytes(name, tabs, slots,
                               r, t_idx if name == "tile_intersect" else idx,
-                              out)
+                              out, (rows, bitpos))
             row = {"k": len(tabs), "W": tabs[0].shape[1], "T": t,
-                   "W_in": r.shape[1], "K0": k0,
+                   "W_in": r.shape[1], "K0": k0, "words_per_block": wpb,
                    "ms": median_ms(kern),
                    "flushed_ms": flushed_ms(kern, flush),
-                   "plain_ms": median_ms(plain),
-                   "host_us": host_us(kern),
-                   "plain_host_us": host_us(plain),
+                   "plain_ms": plain_ms[name],
                    "bytes": nbytes,
                    "bound_ms": nbytes / hw()["hbm_bw"] * 1e3,
                    "max_abs_err": err}
-            per[name][shape] = row
+            if wpb == default and name != "fused_expand_intersect":
+                row["host_us"] = host_us(kern)
+                row["plain_host_us"] = host_us(plain)
+            per[name, wpb][shape] = row
             print(f"time {name} at {shape}: " + json.dumps(row), flush=True)
     out = []
-    for name, shapes in per.items():
+    for (name, wpb), shapes in per.items():
         d = shapes["dblp"]
-        out.append({
+        route = KERNEL_ROUTE[name]
+        row = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/bitmap_intersect.cu",
             "replaces": ("src/repro/kernels/bitmap_intersect.py:88"
                          if name == "tile_intersect"
                          else "src/repro/kernels/bitmap_intersect.py:179"),
-            "launches": launches[KERNEL_ROUTE[name]][name],
-            "launches_by_route": {route: counts[name]
-                                  for route, counts in launches.items()},
-            "max_abs_err": max(errs[name], *(v["max_abs_err"]
-                                             for v in shapes.values())),
+            "words_per_block": wpb,
+            "max_abs_err": max(errs_by_width[wpb][name],
+                               *(v["max_abs_err"] for v in shapes.values())),
             "ms": d["ms"], "plain_ms": d["plain_ms"],
             "bound_ms": d["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
             "launch_floor_ms": floors["warm"],
             "launch_floor_flushed_ms": floors["flushed"],
-            "shapes": shapes})
+            "shapes": shapes}
+        if name == "expand_select":
+            row["launches"] = launches[route][name]
+            row["launches_by_route"] = {r: counts[name]
+                                        for r, counts in launches.items()}
+        else:
+            row["launches"] = widths[route]["by_width"][name][wpb]
+            row["launches_by_route"] = {
+                r: widths[r]["by_width"][name][wpb] for r in widths}
+            row["launches_forced_width"] = (
+                forced[wpb]["by_width"][name][wpb])
+            if name == "expand_intersect":
+                row["launches_without_sweeps"] = \
+                    widths[route]["path_by_width"][wpb]
+        out.append(row)
     return out
 
 
@@ -4485,9 +4699,13 @@ def int_err(got, want) -> int:
 def _engine_held(mesh, dev, cell: dict) -> dict:
     """The engine cell on `mesh`: seeded tables and rows, each rank's
     bitmap_intersect on its local shards and the popcount all-reduce over
-    model (`dryrun.engine_extend`, launches counted), held bit for bit
-    against the plain version (`bitmap_intersect_ref`) and against
-    bitmap_intersect, each over the whole tables on this card."""
+    model (`dryrun.engine_extend`, launches counted, bitmap_intersect's by
+    width too), held bit for bit against the plain version
+    (`bitmap_intersect_ref`) over the whole tables on this card; and
+    bitmap_intersect over the whole tables at every width, each held
+    against the plain version (its own max_abs_err) and against the
+    path's result. Keys by width are strings: the rank's result goes
+    through JSON."""
     from repro_torch.kernels import bitmap_intersect as bi
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ref
@@ -4500,22 +4718,34 @@ def _engine_held(mesh, dev, cell: dict) -> dict:
     sync(dev)
     ms = (time.perf_counter() - t0) * 1e3
     launches = kernel_launch_counts(bi, fd)
+    by_width = {str(wpb): n
+                for wpb, n in bi.bitmap_intersect.launches_by_width.items()}
     r, pop = r.full_tensor(), pop.full_tensor().reshape(-1)
     whole = [t.full_tensor() for t in tables]
     idx_whole = idxs.full_tensor()
     want_r, want_pop = ref.bitmap_intersect_ref(whole, idx_whole)
-    err = max(int_err(r, want_r), int_err(pop, want_pop.reshape(-1)))
+    want_pop = want_pop.reshape(-1)
+    err = max(int_err(r, want_r), int_err(pop, want_pop))
+    same_kernel, width_err = {}, {}
+    for wpb in bi.FUSED_TILE_WIDTHS:
+        got_r, got_pop = bi.bitmap_intersect(whole, idx_whole,
+                                             words_per_block=wpb)
+        got_pop = got_pop.reshape(-1)
+        width_err[str(wpb)] = max(int_err(got_r, want_r),
+                                  int_err(got_pop, want_pop))
+        same_kernel[str(wpb)] = bool(torch.equal(r, got_r)) and bool(
+            torch.equal(pop, got_pop))
+        del got_r, got_pop
     del want_r, want_pop
-    got_r, got_pop = bi.bitmap_intersect(whole, idx_whole)
-    same_kernel = bool(torch.equal(r, got_r)) and bool(
-        torch.equal(pop, got_pop.reshape(-1)))
     out = {"tables": [list(t.shape) for t in tables],
            "local_tables": [list(t.to_local().shape) for t in tables],
            "rows": list(idxs.shape), "max_abs_err": err,
+           "max_abs_err_by_width": width_err,
            "equals_whole_kernel": same_kernel,
-           "bit_identical": err == 0 and same_kernel, "ms": ms,
-           "launches": launches}
-    del whole, r, got_r
+           "bit_identical": (err == 0 and not any(width_err.values())
+                             and all(same_kernel.values())), "ms": ms,
+           "launches": launches, "launches_by_width": by_width}
+    del whole, r
     if dev.type == "cuda":
         out["timing"] = time_engine_shard(bi, [t.to_local() for t in tables],
                                           idxs.to_local())
@@ -4524,36 +4754,48 @@ def _engine_held(mesh, dev, cell: dict) -> dict:
 
 
 def time_engine_shard(bi, tables, idxs) -> dict:
-    """bitmap_intersect on this rank's shards of the engine cell (CUDA
-    events, `median_ms`) beside its plain version; the bound is the bytes
-    the call must move (each table row it gathers, R, idxs and pop, once)
-    over the card's HBM rate."""
+    """bitmap_intersect on this rank's shards of the engine cell at every
+    word-block width (CUDA events, `median_ms`) beside its plain version,
+    which has no width; the bound is the bytes the call must move (each
+    table row it gathers, R, idxs and pop, once) over the card's HBM rate.
+    The default width's time stays at the top level, every width's is
+    under "by_width", keyed by the width as a string (the result goes
+    through JSON)."""
     from repro_torch.kernels import ref
     t, k = idxs.shape
     w = tables[0].shape[1]
     moved = 4 * (t * k * w + t * w + t * k + t)
-    return {"ms": median_ms(lambda: bi.bitmap_intersect(tables, idxs)),
+    by_width = {str(wpb): {"ms": median_ms(lambda: bi.bitmap_intersect(
+        tables, idxs, words_per_block=wpb))} for wpb in bi.FUSED_TILE_WIDTHS}
+    return {**by_width[str(bi.DEFAULT_WORDS_PER_BLOCK)], "by_width": by_width,
             "plain_ms": median_ms(lambda: ref.bitmap_intersect_ref(tables,
                                                                    idxs)),
             "bytes": moved, "bound_ms": moved / hw()["hbm_bw"] * 1e3,
             "shape": {"T": t, "k": k, "W": w, "S": tables[0].shape[0]}}
 
 
-def engine_kernel_row(place: dict) -> dict:
-    """The kernels line's row of `bitmap_intersect`, from phase 5e's engine
-    cell: its launches on the phase's path, its agreement and its times
-    at the rank's shard."""
+def engine_kernel_rows(bi, place: dict) -> list:
+    """The kernels line's rows of `bitmap_intersect`, one a width, from
+    phase 5e's engine cell: its launches at that width on the phase's
+    path (the cell calls it at the default width), its difference from the
+    plain version at that width over the whole tables, whether it equals
+    the path's result, and its time at the rank's shard."""
     eng = place["engine"]
     tm = eng["timing"]
-    return {"name": "bitmap_intersect", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/bitmap_intersect.cu",
-            "replaces": "src/repro/kernels/bitmap_intersect.py:88",
-            "launches": eng["launches"]["bitmap_intersect"],
-            "max_abs_err": eng["max_abs_err"],
-            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
-            "bound_ms": tm["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "shape": tm["shape"], "bytes": tm["bytes"],
-            "path": "phase 5e engine cell, a rank's shard"}
+    return [{"name": "bitmap_intersect", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/bitmap_intersect.cu",
+             "replaces": "src/repro/kernels/bitmap_intersect.py:88",
+             "words_per_block": wpb,
+             "launches": eng["launches_by_width"][str(wpb)],
+             "max_abs_err": eng["max_abs_err_by_width"][str(wpb)],
+             "equals_the_path_bit_for_bit":
+                 eng["equals_whole_kernel"][str(wpb)],
+             "ms": tm["by_width"][str(wpb)]["ms"],
+             "plain_ms": tm["plain_ms"],
+             "bound_ms": tm["bound_ms"], "bound_by": "bytes",
+             "library_ms": None, "shape": tm["shape"], "bytes": tm["bytes"],
+             "path": "phase 5e engine cell, a rank's shard"}
+            for wpb in bi.FUSED_TILE_WIDTHS]
 
 
 def placement_rank(rank: int, world: int, port: int, out_dir: str,
@@ -4641,9 +4883,10 @@ def placement_rank(rank: int, world: int, port: int, out_dir: str,
         if not eng["bit_identical"]:
             raise SystemExit(f"rank {rank}: the engine cell's R and pop "
                              f"differ from the plain version over the whole "
-                             f"tables by {eng['max_abs_err']}, or from "
-                             f"bitmap_intersect's (equal: "
-                             f"{eng['equals_whole_kernel']})")
+                             f"tables by {eng['max_abs_err']}, or "
+                             f"bitmap_intersect's at a width by "
+                             f"{eng['max_abs_err_by_width']} (equal to the "
+                             f"path's: {eng['equals_whole_kernel']})")
         eng["seconds"] = time.perf_counter() - t0
         res["engine"] = eng
         t0 = time.perf_counter()
@@ -4857,15 +5100,18 @@ def main() -> int:
               flush=True)
 
     t0 = time.perf_counter()
-    errs = check_kernels(bi, ref, dev)
-    new_errs, n_new = check_new_kernels(bi, ref, dev)
-    errs.update(new_errs)
-    lane_err, n_lane = check_lane(bi, ref, dev)
-    errs["tile_intersect"] = max(errs["tile_intersect"], lane_err)
-    print(f"bitmap kernels agree with their plain versions bit for bit, "
-          f"{n_new} cases of the new entry points, {n_lane} of "
-          f"tile_intersect's query lane "
-          f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    errs_by_width, n_new, n_lane = {}, {}, {}
+    for wpb in bi.FUSED_TILE_WIDTHS:
+        e = check_kernels(bi, ref, dev, wpb)
+        new_errs, n_new[wpb] = check_new_kernels(bi, ref, dev, wpb)
+        e.update(new_errs)
+        lane_err, n_lane[wpb] = check_lane(bi, ref, dev, wpb)
+        e["tile_intersect"] = max(e["tile_intersect"], lane_err)
+        errs_by_width[wpb] = e
+    print(f"bitmap kernels agree with their plain versions bit for bit at "
+          f"every width {bi.FUSED_TILE_WIDTHS}: cases of the new entry "
+          f"points by width {n_new}, of tile_intersect's query lane "
+          f"{n_lane} ({time.perf_counter() - t0:.3f} s)", flush=True)
     t0 = time.perf_counter()
     fd_errs, n_fd = check_flash_decode(fd, ref, dev)
     print(f"flash_decode agrees with its plain version in {n_fd} cases, "
@@ -4873,18 +5119,52 @@ def main() -> int:
           f"({time.perf_counter() - t0:.3f} s)", flush=True)
 
     work = prepare(api, cemr_match)
-    by_route, launches = {}, {}
+    by_route, launches, widths = {}, {}, {}
     for route in ("auto", "fused"):
         t0 = time.perf_counter()
-        by_route[route], launches[route], calls = drive(
+        by_route[route], launches[route], calls, widths[route] = drive(
             bi, engine_mod, bitops_mod, work, route)
         for r in by_route[route]:
             print("run " + json.dumps(r), flush=True)
         print(f"main path {route}: {len(work)} runs in "
               f"{time.perf_counter() - t0:.3f} s, launches {launches[route]}, "
-              f"path calls {calls}", flush=True)
+              f"path calls {calls}, launches by width "
+              f"{widths[route]['by_width']}", flush=True)
         check_launches(route, launches[route], calls)
+        check_widths(bi, widths[route]["by_width"], widths[route]["picks"],
+                     calls, route)
+        widths[route]["path_by_width"] = path_by_width(
+            widths[route]["by_width"], calls)
+        widths[route]["sweep_launches"] = calls["sweep_launches"]
+    if not widths["fused"]["sweep_launches"]:
+        raise SystemExit("the fused route's engine builds swept no width on "
+                         "the card")
+    # one pick a fused boundary's build (the autotune's cache answers all
+    # but the first of a (k, W))
+    picks = {}
+    for pick in widths["fused"]["picks"]:
+        key = (pick["k"], pick["W"], pick["width"])
+        picks[key] = picks.get(key, 0) + 1
+    for (k, w, wpb), n in sorted(picks.items()):
+        # the same sweep once more, outside the path's counts, to show how
+        # far apart the widths' times are at the sweep's shape
+        again = {x: bi._sweep_seconds(bi._sweep_inputs(k, w, dev), x, dev)
+                 * 1e3 for x in bi.FUSED_TILE_WIDTHS}
+        print(f"autotune on {card}: fused boundary k={k} W={w} -> "
+              f"words_per_block {wpb} ({n} boundary builds); the sweep "
+              f"again, ms a call: " + ", ".join(
+                  f"{x}: {t:.6f}" for x, t in again.items()), flush=True)
     check_runs(by_route)
+    t0 = time.perf_counter()
+    forced = drive_widths(api, bi, engine_mod, bitops_mod, work,
+                          by_route["fused"])
+    for wpb, r in forced.items():
+        print(f"fused at width {wpb} on {card}: dblp size 8 count "
+              f"{r['count']} and VectorStats equal to the autotuned run, "
+              f"wall {r['wall_s'] * 1e3:.1f} ms, expand_intersect by width "
+              f"{r['by_width']['expand_intersect']} for "
+              f"{r['path_calls']['fused']} fused boundaries", flush=True)
+    print(f"forced widths in {time.perf_counter() - t0:.3f} s", flush=True)
     from repro_torch.api import options as options_mod
     mesh_res = check_mesh_auto(api, options_mod, work, by_route["auto"])
     print("mesh auto equals mesh=None on the card " + json.dumps(mesh_res),
@@ -5005,14 +5285,16 @@ def main() -> int:
     print(f"launch floor: torch.cuda._sleep(0) back to back "
           f"{floors['warm']:.6f} ms, alone after an L2 flush "
           f"{floors['flushed']:.6f} ms", flush=True)
-    kernels = time_kernels(bi, ref, shapes_cq, dev, launches, errs, floors)
+    kernels = time_kernels(bi, ref, shapes_cq, dev, launches, errs_by_width,
+                           floors, widths, forced)
     m_mix, mix = sb_res["matcher"], sb_res["queries_list"]
     lane = time_lane(bi, ref, sched_mod.SuperbatchScheduler(
         [m_mix.compile(mix[i]).plan for i in MIX_BUCKETS[0]], device=dev),
         dev)
     print(f"time tile_intersect lane on {card}: " + json.dumps(lane),
           flush=True)
-    ti = next(k for k in kernels if k["name"] == "tile_intersect")
+    ti = next(k for k in kernels if k["name"] == "tile_intersect"
+              and k["words_per_block"] == bi.DEFAULT_WORDS_PER_BLOCK)
     ti["lane"] = lane
     ti["lane_launches"] = sb_res["lane_launches"]
     kernels.append(time_flash_decode(
@@ -5086,11 +5368,13 @@ def main() -> int:
         if k["name"] in held:
             k["max_abs_err_phase_5e"] = held[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], held[k["name"]])
-    kernels.append(engine_kernel_row(place))
+    kernels += engine_kernel_rows(bi, place)
 
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.3f} s",
           flush=True)
-    print("kernels: " + ", ".join(k["name"] for k in kernels))
+    print("kernels: " + ", ".join(
+        k["name"] + (f" (words_per_block {k['words_per_block']})"
+                     if "words_per_block" in k else "") for k in kernels))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,28 @@
 """Where the time of the port's paths goes, on one CUDA card.
 
     python3 chip_trace.py [--matcher-only] [--superbatch] [--lm-train]
-                          [--src DIR]
+                          [--src DIR] [--words-per-block N]
 
 Runs `repro_torch.api.Matcher.count(engine="vector")` on synthetic dblp at
 scale 1.0 with `random_query(size=8, seed=7)`, once to warm up and then
 under `torch.profiler` for each `intersect` route, and prints beside the
 window's numbers the median wall of 5 unprofiled counts, the launches a
 superstep and the bitmap kernels' launches (each wrapper's count over
-the profiled count). `--superbatch` profiles instead chip_smoke.py's
-superbatch mix on the same dataset (`MIX`: eight queries in two buckets
-and a singleton) through `Matcher.match_many` with batch="auto" and with
-batch="off", each warm, beside the median wall of 3 unprofiled drains:
-launches a superstep (over every superstep of the drain, batched or
-not), the device-busy share and queries per second. `--src DIR`
-imports `repro_torch` from DIR instead of this checkout's `src/` (to
-profile another tree in the same call); `--matcher-only` skips the LM
-windows. Then, unless skipped, one full-width
+the profiled count), and the wall of the route's first count
+(`count_ms_first`: its engine is built then, so on "fused" it holds the
+word-block width's autotune sweeps; the auto route's also holds the
+kernels' build where the library is not built yet). `--superbatch`
+profiles instead chip_smoke.py's superbatch mix on the same dataset
+(`MIX`: eight queries in two buckets and a singleton) through
+`Matcher.match_many` with batch="auto" and with batch="off", each warm,
+beside the median wall of 3 unprofiled drains: launches a superstep
+(over every superstep of the drain, batched or not), the device-busy
+share and queries per second. `--src DIR` imports `repro_torch` from DIR
+instead of this checkout's `src/` (to profile another tree in the same
+call); `--words-per-block N` gives every fused boundary of the matcher
+windows the width N instead of the autotune's pick (the route without
+its sweeps, for comparing against a tree that has none);
+`--matcher-only` skips the LM windows. Then, unless skipped, one full-width
 qwen2-1.5b decode step (bfloat16, random weights from seed 0) as the
 serve loop has it (batch 4, float32 cache of 24 positions) and as
 `decode_32k` has it (batch 32, bfloat16 cache of 32,772 positions filled
@@ -169,6 +175,7 @@ def main() -> int:
     parser.add_argument("--src", default=str(Path(__file__).resolve().parent
                                              / "src"))
     parser.add_argument("--matcher-only", action="store_true")
+    parser.add_argument("--words-per-block", type=int, default=None)
     parser.add_argument("--superbatch", action="store_true")
     parser.add_argument("--lm-train", action="store_true")
     args = parser.parse_args()
@@ -190,10 +197,16 @@ def main() -> int:
     if args.superbatch:
         trace_superbatch(api, bi, ds, card, args.src)
         return 0
+    if args.words_per_block is not None:
+        bi.autotune_words_per_block = \
+            lambda k, w, *, device, _wpb=args.words_per_block: _wpb
     q = ds.random_query(size=8, seed=7)
     m = api.Matcher(ds)
     for intersect in ("auto", "fused"):
+        t0 = time.perf_counter()
         m.count(q, engine="vector", intersect=intersect)      # warm
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
         walls = []
         for _ in range(5):                   # unprofiled, synchronised
             t0 = time.perf_counter()
@@ -208,8 +221,10 @@ def main() -> int:
                   if callable(fn) and hasattr(fn, "launches")}
         print(json.dumps({
             "card": card, "path": "matcher", "src": args.src,
+            "words_per_block": args.words_per_block,
             "intersect": intersect, "count": out.count,
             "supersteps": out.stats.supersteps,
+            "count_ms_first": first_ms,
             "count_ms_unprofiled": sorted(walls)[len(walls) // 2],
             "count_ms_unprofiled_all": walls,
             "launches_per_superstep": stats["kernel_launches"] / steps,

@@ -375,6 +375,10 @@ class VectorEngine:
         with its same-label clears — the same pure function of the key
         columns as `_make_compute_parts(sj)`.
 
+        The launch's word-block width is autotuned for the extend's (k, W)
+        on the engine's device when the boundary is built, as the
+        reference does; every width gives the same bits.
+
         Returns None when the fused path is off (`intersect != "fused"`)
         or the stage pair is ineligible (root / union / decompose extends
         have no backward-pair intersection to fuse). The kernel never masks
@@ -392,12 +396,14 @@ class VectorEngine:
         slots = tuple(s for (s, _) in op.bk_pairs)
         same_slots = tuple(op.same_label_idx_slots)
         rest = self._make_expand_rest(si)
+        wpb = _kernels.autotune_words_per_block(len(keys), op.n_words,
+                                                device=self.device)
 
         def fused(tile, r, start, tables):
             rows, bitpos, valid, total, child, r2, pop2 = \
                 _kernels.expand_intersect(r, start, t_out, tile["idx"],
                                           [tables[k] for k in keys], slots,
-                                          same_slots)
+                                          same_slots, words_per_block=wpb)
             return (rest(tile, rows, bitpos, valid, child, tables), total,
                     (r2, pop2))
 

@@ -21,32 +21,55 @@ adds the child's first extension to the same launch. `bitmap_intersect`
 and `fused_expand_intersect` keep the TPU kernels' contracts as thin entry
 points over the same device code.
 
+Every entry point with an extend takes `words_per_block`, the word-block
+width: the words one warp reads of a row in one pass (32 lanes times the
+1, 2 or 4 words each lane keeps in flight of each table), one compiled
+instantiation of each kernel per member of `FUSED_TILE_WIDTHS`. The width
+changes how HBM is read, never what is computed: every width gives the
+same bits, so each width is held against the one plain version, which has
+no width (AND and popcount are the same over any blocking of the words).
+128 is the default everywhere. The
+fused route picks its width with `autotune_words_per_block`, the port of
+the reference's sweep; the reference's widths (8, 16, 32 words) are a
+TPU's tiling (lanes of a vector register) and do not carry over to a
+warp.
+
 Bitmaps are int32 tensors carrying the reference's uint32 bits. A wrapper
 takes the plain torch version (`ref.py`) only because its tensors lie on the
 CPU; CUDA tensors launch the kernel, and anything else raises. Each wrapper
 counts its kernel launches in a plain integer attribute, `launches`;
-`tile_intersect.lane_launches` counts those of them with a query lane.
+`tile_intersect.lane_launches` counts those of them with a query lane, and
+each wrapper that takes a width counts its launches by width in
+`launches_by_width`, and those of them that `autotune_words_per_block`'s
+sweeps made in `sweep_launches_by_width`.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import operator
+import time
 
+import numpy as np
 import torch
 
+from ..device import resolve_device
 from . import ref
 from .build import load_library
 
 __all__ = ["tile_intersect", "expand_select", "expand_intersect",
-           "bitmap_intersect", "fused_expand_intersect", "reset_launches",
-           "WRAPPERS", "LIBRARY", "MAX_TABLES", "MAX_CLEARS"]
+           "bitmap_intersect", "fused_expand_intersect",
+           "autotune_words_per_block", "reset_launches", "WRAPPERS",
+           "WIDTH_WRAPPERS", "LIBRARY", "MAX_TABLES", "MAX_CLEARS",
+           "FUSED_TILE_WIDTHS", "DEFAULT_WORDS_PER_BLOCK"]
 
 LIBRARY = "bitmap_intersect"
 MAX_TABLES = 32                  # kMaxTables in the .cu source
 MAX_CLEARS = 32                  # kMaxClears
 SELECT_CTAS = 8                  # kSelectCtas
 SMEM_CUM_ROWS = 8191             # kSmemCumRows
+FUSED_TILE_WIDTHS = (32, 64, 128)   # kWidths: words a warp reads a pass
+DEFAULT_WORDS_PER_BLOCK = 128
 
 
 class _TableSet(ctypes.Structure):
@@ -80,12 +103,22 @@ def _lib() -> ctypes.CDLL:
         if getattr(lib, name)() != want:
             raise RuntimeError(f"csrc/bitmap_intersect.cu and its wrapper "
                                f"disagree: {name}")
+    lib.cemr_num_widths.argtypes = []
+    lib.cemr_num_widths.restype = i
+    lib.cemr_width.argtypes = [i]
+    lib.cemr_width.restype = i
+    lib.cemr_error_width.argtypes = []
+    lib.cemr_error_width.restype = i
+    widths = tuple(lib.cemr_width(j) for j in range(lib.cemr_num_widths()))
+    if widths != FUSED_TILE_WIDTHS:
+        raise RuntimeError(f"csrc/bitmap_intersect.cu has widths {widths}, "
+                           f"its wrapper {FUSED_TILE_WIDTHS}")
     lib.cemr_error_string.argtypes = [i]
     lib.cemr_error_string.restype = ctypes.c_char_p
-    lib.cemr_intersect.argtypes = [p, p, i, i, p, p, i, i, p, p, p]
+    lib.cemr_intersect.argtypes = [p, p, i, i, p, p, i, i, p, p, i, p]
     lib.cemr_intersect.restype = i
     lib.cemr_expand_select.argtypes = [p, p, i, i, ctypes.c_longlong, i, p,
-                                       i, p, p, p, p, p, p, i, p, p, p]
+                                       i, p, p, p, p, p, p, i, p, p, i, p]
     lib.cemr_expand_select.restype = i
     return lib
 
@@ -164,6 +197,16 @@ def _check_clears(clear_slots, bound) -> tuple:
     return clears
 
 
+def _check_width(words_per_block) -> int:
+    """The word-block width as an int, one of FUSED_TILE_WIDTHS; anything
+    else raises (no rounding to a width that has an instantiation)."""
+    wpb = operator.index(words_per_block)
+    if wpb not in FUSED_TILE_WIDTHS:
+        raise ValueError(f"words_per_block must be one of "
+                         f"{FUSED_TILE_WIDTHS}, got {wpb}")
+    return wpb
+
+
 def _on_card(dev, what) -> bool:
     """False for the CPU (the plain version runs), True for CUDA; raises
     for any other device."""
@@ -175,6 +218,8 @@ def _on_card(dev, what) -> bool:
 
 
 def _raise_on(code: int, lib: ctypes.CDLL, what: str) -> None:
+    if code == lib.cemr_error_width():
+        raise ValueError(f"{what}: {lib.cemr_error_string(code).decode()}")
     if code != 0:
         msg = lib.cemr_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
@@ -185,8 +230,9 @@ def _stream(dev) -> int:
 
 
 def _intersect(tables, slots, clears, idx, rows, bitpos, n_out, w, dev,
-               qslot=-1):
-    """Launch intersect_kernel; returns (R (n_out, W), pop (n_out,))."""
+               wpb, qslot=-1):
+    """Launch intersect_kernel at width `wpb`; returns (R (n_out, W),
+    pop (n_out,))."""
     lib = _lib()
     r = torch.empty((n_out, w), dtype=torch.int32, device=dev)
     pop = torch.empty((n_out,), dtype=torch.int32, device=dev)
@@ -199,13 +245,22 @@ def _intersect(tables, slots, clears, idx, rows, bitpos, n_out, w, dev,
             ctypes.addressof(ts), idx.data_ptr() if k0 else None, n_in, k0,
             None if rows is None else rows.data_ptr(),
             None if bitpos is None else bitpos.data_ptr(), n_out, w,
-            r.data_ptr(), pop.data_ptr(), _stream(dev))
+            r.data_ptr(), pop.data_ptr(), wpb, _stream(dev))
     _raise_on(code, lib, "intersect_kernel")
     return r, pop
 
 
+def _counted(fn, wpb) -> None:
+    """One launch of `fn`'s kernel at width `wpb`, made by an autotune
+    sweep while `_sweeping` is set."""
+    fn.launches += 1
+    fn.launches_by_width[wpb] += 1
+    if _sweeping:
+        fn.sweep_launches_by_width[wpb] += 1
+
+
 def tile_intersect(tables, idx: torch.Tensor, slots, clear_slots=(),
-                   qid_slot=None):
+                   qid_slot=None, words_per_block=DEFAULT_WORDS_PER_BLOCK):
     """The pair branch of an extension compute over a tile's index columns:
     R[t] = AND_j tables[j][idx[t, slots[j]]], then for each c in
     clear_slots the bit idx[t, c] cleared (a negative entry clears
@@ -216,6 +271,7 @@ def tile_intersect(tables, idx: torch.Tensor, slots, clear_slots=(),
     With qid_slot (an int in [0, K): the query lane) each table is a
     (Q, S_j, W) stack and R[t] = AND_j tables[j][idx[t, qid_slot],
     idx[t, slots[j]]], each index taken on its own axis.
+    words_per_block: the width, one of FUSED_TILE_WIDTHS.
     Returns (R (T, W) int32, pop (T,) int32)."""
     tables = tuple(tables)
     dev = idx.device
@@ -229,18 +285,20 @@ def tile_intersect(tables, idx: torch.Tensor, slots, clear_slots=(),
     clears = _check_clears(clear_slots, k_cols - 1)
     qslot = (_check_slots("qid_slot", (qid_slot,), 1, k_cols - 1)[0] if lane
              else -1)
+    wpb = _check_width(words_per_block)
     if not _on_card(dev, "tile_intersect"):
         return ref.tile_intersect_ref(tables, idx, slots, clears,
                                       qid_slot if lane else None)
     out = _intersect(tables, slots, clears, idx, None, None, idx.shape[0], w,
-                     dev, qslot)
-    tile_intersect.launches += 1
+                     dev, wpb, qslot)
+    _counted(tile_intersect, wpb)
     tile_intersect.lane_launches += lane
     return out
 
 
-def _select(r, start, n_out, idx, tables, slots, clears, w, dev):
-    """Launch expand_select_kernel (with tables: and the intersect)."""
+def _select(r, start, n_out, idx, tables, slots, clears, w, dev, wpb):
+    """Launch expand_select_kernel at width `wpb` (with tables: and the
+    intersect)."""
     lib = _lib()
     n_in, w_in = r.shape
     k0 = idx.shape[1]
@@ -264,7 +322,7 @@ def _select(r, start, n_out, idx, tables, slots, clears, w, dev):
             rows.data_ptr(), bitpos.data_ptr(), valid.data_ptr(),
             total.data_ptr(), child.data_ptr(), w,
             r2.data_ptr() if tables else None,
-            pop2.data_ptr() if tables else None, _stream(dev))
+            pop2.data_ptr() if tables else None, wpb, _stream(dev))
     _raise_on(code, lib, "expand_select_kernel")
     return rows, bitpos, valid, total, child, r2, pop2
 
@@ -297,19 +355,23 @@ def expand_select(r: torch.Tensor, start, n_out: int, idx: torch.Tensor):
     dev, start, n_out = _check_select(r, start, n_out, idx)
     if not _on_card(dev, "expand_select"):
         return ref.expand_select_ref(r, start, n_out, idx)
-    out = _select(r, start, n_out, idx, (), (), (), 0, dev)
+    # no extend, so no width: the default instantiation
+    out = _select(r, start, n_out, idx, (), (), (), 0, dev,
+                  DEFAULT_WORDS_PER_BLOCK)
     expand_select.launches += 1
     return out[:5]
 
 
 def expand_intersect(r: torch.Tensor, start, n_out: int, idx: torch.Tensor,
-                     tables, slots, clear_slots=()):
+                     tables, slots, clear_slots=(),
+                     words_per_block=DEFAULT_WORDS_PER_BLOCK):
     """`expand_select` and the child's first extension in one launch: for
     child row t, key slot s < K0 reads idx[rows[t], s] and slot K0 reads
     bitpos[t]; R2[t] is the AND of the keyed table rows with the bit of
     child column c cleared for each c in clear_slots, pop2[t] its popcount
     after the clears. Unmasked: rows at ranks >= total are computed from
-    their clamped selection like any other.
+    their clamped selection like any other. words_per_block: the extend's
+    width, one of FUSED_TILE_WIDTHS.
 
     Returns (rows, bitpos, valid, total, child_idx, R2 (n_out, W) int32,
     pop2 (n_out,) int32)."""
@@ -319,40 +381,46 @@ def expand_intersect(r: torch.Tensor, start, n_out: int, idx: torch.Tensor,
     k0 = idx.shape[1]
     slots = _check_slots("slots", slots, len(tables), k0)
     clears = _check_clears(clear_slots, k0)
+    wpb = _check_width(words_per_block)
     if not _on_card(dev, "expand_intersect"):
         return ref.expand_intersect_ref(r, start, n_out, idx, tables, slots,
                                         clears)
-    out = _select(r, start, n_out, idx, tables, slots, clears, w, dev)
-    expand_intersect.launches += 1
+    out = _select(r, start, n_out, idx, tables, slots, clears, w, dev, wpb)
+    _counted(expand_intersect, wpb)
     return out
 
 
-def bitmap_intersect(tables, idxs: torch.Tensor):
+def bitmap_intersect(tables, idxs: torch.Tensor,
+                     words_per_block=DEFAULT_WORDS_PER_BLOCK):
     """R[t] = AND_j tables[j][idxs[t, j]]; pop[t] = popcount(R[t]).
 
-    tables: k × (S_j, W) int32, contiguous; idxs: (T, k) int32.
+    tables: k × (S_j, W) int32, contiguous; idxs: (T, k) int32;
+    words_per_block: the width, one of FUSED_TILE_WIDTHS.
     Returns (R (T, W) int32, pop (T, 1) int32)."""
     tables = tuple(tables)
     dev = idxs.device
     w = _check_tables(tables, dev)
     k = len(tables)
     _check_index("idxs", idxs, (idxs.shape[0], k), dev)
+    wpb = _check_width(words_per_block)
     if not _on_card(dev, "bitmap_intersect"):
         return ref.bitmap_intersect_ref(tables, idxs)
     r, pop = _intersect(tables, tuple(range(k)), (), idxs, None, None,
-                        idxs.shape[0], w, dev)
-    bitmap_intersect.launches += 1
+                        idxs.shape[0], w, dev, wpb)
+    _counted(bitmap_intersect, wpb)
     return r, pop[:, None]
 
 
 def fused_expand_intersect(tables, idx: torch.Tensor, rows: torch.Tensor,
-                           bitpos: torch.Tensor, slots):
+                           bitpos: torch.Tensor, slots,
+                           words_per_block=DEFAULT_WORDS_PER_BLOCK):
     """Fused frontier expansion + k-way AND + popcount over a given
     selection: slot s < K0 reads table row idx[rows[t], s], slot s == K0
     reads bitpos[t].
 
     tables: k × (S_j, W) int32; idx: (Tin, K0) int32 parent index columns
-    (K0 may be 0); rows, bitpos: (T,) int32; slots: k ints in [0, K0].
+    (K0 may be 0); rows, bitpos: (T,) int32; slots: k ints in [0, K0];
+    words_per_block: the width, one of FUSED_TILE_WIDTHS.
     Returns (R (T, W) int32, pop (T, 1) int32), unmasked."""
     tables = tuple(tables)
     dev = rows.device
@@ -365,22 +433,134 @@ def fused_expand_intersect(tables, idx: torch.Tensor, rows: torch.Tensor,
     _check_index("rows", rows, (n_out,), dev)
     _check_index("bitpos", bitpos, (n_out,), dev)
     slots = _check_slots("slots", slots, len(tables), k0)
+    wpb = _check_width(words_per_block)
     if not _on_card(dev, "fused_expand_intersect"):
         return ref.fused_expand_intersect_ref(tables, idx, rows, bitpos,
                                               slots=slots)
-    r, pop = _intersect(tables, slots, (), idx, rows, bitpos, n_out, w, dev)
-    fused_expand_intersect.launches += 1
+    r, pop = _intersect(tables, slots, (), idx, rows, bitpos, n_out, w, dev,
+                        wpb)
+    _counted(fused_expand_intersect, wpb)
     return r, pop[:, None]
+
+
+# ------------------------------------------------------------------ autotune
+# The sweep's synthetic shape, the reference's: T output rows over tables
+# of S rows
+_SWEEP_T, _SWEEP_S = 64, 128
+_SWEEP_CALLS = 3                  # timed calls a width, after a warm one
+# cycles the card spins before the timed calls, so that they queue behind
+# it and the events time the device, not the host's launches (about 1 ms,
+# several times the host's time for the calls)
+_SWEEP_SLEEP_CYCLES = 2_000_000
+_AUTOTUNE_CACHE: dict[tuple, int] = {}
+_sweeping = False                 # set while a sweep launches
+
+
+def _sweep_inputs(k: int, w: int, dev):
+    """The reference's sweep inputs: table j filled with 0x5A5A5A5A + j,
+    one parent column idx[t] = t % S, the selection rows[t] = t and
+    bitpos[t] = 7 t % S, slots (1, 0, ..., 0), so one table is keyed by
+    the selected bit and the others through the parent column. The
+    frontier has the one bit bitpos[t] in row t, so that `expand_select`
+    selects exactly (rows, bitpos)."""
+    t, s = _SWEEP_T, _SWEEP_S
+    tabs = [torch.from_numpy(np.full((s, w), 0x5A5A5A5A + j, np.uint32)
+                             .view(np.int32)).to(dev) for j in range(k)]
+    idx = (torch.arange(t, dtype=torch.int32) % s)[:, None].to(dev)
+    bitpos = (np.arange(t) * 7) % s
+    frontier = np.zeros((t, (s + 31) // 32), np.uint32)
+    frontier[np.arange(t), bitpos >> 5] = np.uint32(1) << (bitpos & 31)
+    r = torch.from_numpy(frontier.view(np.int32)).to(dev)
+    return r, idx, tabs, (1,) + (0,) * (k - 1)
+
+
+def _sweep_seconds(inputs, wpb: int, dev) -> float:
+    """Seconds one `expand_intersect` at width `wpb` takes on the sweep's
+    inputs: a call outside the timing, then the mean of _SWEEP_CALLS. On
+    the card CUDA events on the current stream time the device; on the CPU
+    the host clock times the plain version."""
+    global _sweeping
+    r, idx, tabs, slots = inputs
+
+    def call():
+        return expand_intersect(r, 0, _SWEEP_T, idx, tabs, slots,
+                                words_per_block=wpb)
+
+    _sweeping = True
+    try:
+        call()
+        if dev.type != "cuda":
+            t0 = time.perf_counter()
+            for _ in range(_SWEEP_CALLS):
+                call()
+            return (time.perf_counter() - t0) / _SWEEP_CALLS
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(_SWEEP_SLEEP_CYCLES)
+            start.record(stream)
+            for _ in range(_SWEEP_CALLS):
+                call()
+            stop.record(stream)
+            stop.synchronize()
+        return start.elapsed_time(stop) / 1e3 / _SWEEP_CALLS
+    finally:
+        _sweeping = False
+
+
+def autotune_words_per_block(k: int, w: int, *, device=None,
+                             widths=FUSED_TILE_WIDTHS) -> int:
+    """The fused route's word-block width for an extend of k tables of W
+    words: the reference's sweep (src/repro/kernels/bitmap_intersect.py,
+    `autotune_words_per_block`) on `device` (None: the card), cached per
+    (device type, device index, k, W, widths).
+
+    Each width's `expand_intersect`, the kernel the fused route launches,
+    is timed on the reference's synthetic shape (`_sweep_inputs`); the
+    fastest width wins, the first of `widths` on a tie. On the card the
+    winner's time is held against the HBM floor k·T·W·4 B over
+    `launch.roofline.HW["hbm_bw"]`: a time under it cannot be, so the
+    timer is not trusted and the largest width is returned. On the CPU the
+    plain version is timed and the floor is not checked, as the reference
+    skips it in interpret mode. Every width gives the same bits, so the
+    pick changes how fast the route runs, never what it computes."""
+    widths = tuple(_check_width(x) for x in widths)
+    if not widths:
+        raise ValueError("widths must name at least one width")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (dev.type, dev.index, int(k), int(w), widths)
+    best = _AUTOTUNE_CACHE.get(key)
+    if best is not None:
+        return best
+    inputs = _sweep_inputs(k, w, dev)
+    times = {wpb: _sweep_seconds(inputs, wpb, dev) for wpb in widths}
+    best = min(widths, key=times.__getitem__)
+    if dev.type == "cuda":
+        from ..launch.roofline import HW
+        floor = k * _SWEEP_T * w * 4 / HW["hbm_bw"]
+        if times[best] < floor:
+            best = max(widths)
+    _AUTOTUNE_CACHE[key] = best
+    return best
 
 
 WRAPPERS = (tile_intersect, expand_select, expand_intersect,
             bitmap_intersect, fused_expand_intersect)
+# the wrappers that take a width
+WIDTH_WRAPPERS = (tile_intersect, expand_intersect, bitmap_intersect,
+                  fused_expand_intersect)
 
 
 def reset_launches() -> None:
-    """Set every wrapper's launch count to 0."""
+    """Set every wrapper's launch counts to 0."""
     for fn in WRAPPERS:
         fn.launches = 0
+    for fn in WIDTH_WRAPPERS:
+        fn.launches_by_width = dict.fromkeys(FUSED_TILE_WIDTHS, 0)
+        fn.sweep_launches_by_width = dict.fromkeys(FUSED_TILE_WIDTHS, 0)
     tile_intersect.lane_launches = 0
 
 

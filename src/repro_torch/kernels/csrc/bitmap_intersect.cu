@@ -45,7 +45,17 @@
 // Design. One warp per output row: the lanes stride over the W words, so
 // gathered row reads are coalesced; each lane ANDs its words across the k
 // tables, clears the same-label bits, stores and sums __popc, and the warp
-// reduces the popcount; each lane keeps 4 words of each table in flight.
+// reduces the popcount. The word-block width (`words_per_block`, 32, 64
+// or 128: the words one warp reads of a row in one pass, 32 lanes times the
+// 1, 2 or 4 words each lane keeps in flight of each table) is a template
+// parameter of intersect_row and of both kernels, one instantiation per
+// width; the C entries take the width and refuse one with no
+// instantiation. 128 is the default of every entry point. The width
+// changes how a row is read, never what is computed: every width gives
+// the same bits. It is the counterpart of the TPU kernels' word block
+// (src/repro/kernels/bitmap_intersect.py, `words_per_block`, autotuned
+// over 8, 16 and 32 words), whose values are a TPU's tiling and do not
+// carry over.
 // The selection runs in up to 8 CTAs of 32 warps that never wait on each
 // other:
 //   1. each CTA counts the set bits of every frontier row (a warp keeps 8
@@ -74,12 +84,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kMaxTables = 32;
 constexpr int kMaxClears = 32;
 constexpr int kWarpsPerBlock = 8;        // intersect_kernel
-constexpr int kWordsInFlight = 4;        // words a lane loads at once
+// words one warp reads of a row in one pass, one instantiation each:
+// 32 lanes x kWordsInFlight = 1, 2, 4 words a lane loads at once
+constexpr int kWidths[] = {32, 64, 128};
+constexpr int kNumWidths = sizeof(kWidths) / sizeof(kWidths[0]);
+constexpr int kErrWidth = -1;            // no instantiation for the width
 constexpr int kSelectCtas = 8;           // expand_select_kernel: at most
 constexpr int kSelectWarps = 32;         // 1024 threads a CTA
 constexpr int kRowsInFlight = 8;         // rows a warp counts at once
@@ -127,8 +143,10 @@ __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
 }
 
 // The output row's intersect, by a whole warp. value(s) is the row's index
-// column s (a key or a clear position).
-template <class Value>
+// column s (a key or a clear position). Each lane keeps kWordsInFlight
+// words of each table in flight; a pass covers 32 * kWordsInFlight words,
+// and words past n_words are neither loaded nor stored.
+template <int kWordsInFlight, class Value>
 __device__ __forceinline__ void intersect_row(
     const TableSet& ts, Value value, int n_words, int lane, WarpRows& ws,
     uint32_t* __restrict__ r_out, int32_t* __restrict__ pop_out) {
@@ -175,6 +193,7 @@ __device__ __forceinline__ void intersect_row(
 // Keys of output row t: slot s < k0 reads idx[p, s] with p = rows[t]
 // (clamped into the parent) or t itself when rows is null; slot k0 reads
 // bitpos[t].
+template <int kWordsInFlight>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 intersect_kernel(const TableSet ts, const int32_t* __restrict__ idx,
                  int n_in, int k0, const int32_t* __restrict__ rows,
@@ -189,8 +208,8 @@ intersect_kernel(const TableSet ts, const int32_t* __restrict__ idx,
   auto value = [&](int s) -> int {
     return s < k0 ? idx[p * k0 + s] : bitpos[t];
   };
-  intersect_row(ts, value, n_words, lane, scratch[warp],
-                r + (long long)t * n_words, pop + t);
+  intersect_row<kWordsInFlight>(ts, value, n_words, lane, scratch[warp],
+                                r + (long long)t * n_words, pop + t);
 }
 
 struct SelectArgs {
@@ -212,6 +231,7 @@ struct SelectArgs {
   int32_t* pop2;                         // (n_out)
 };
 
+template <int kWordsInFlight>
 __global__ void __launch_bounds__(kSelectWarps * 32, 1)
 expand_select_kernel(const SelectArgs a, const TableSet ts) {
   extern __shared__ int smem_cum[];
@@ -319,9 +339,28 @@ expand_select_kernel(const SelectArgs a, const TableSet ts) {
     for (int s = lane; s <= a.k0; s += 32)
       a.child_idx[(long long)t * (a.k0 + 1) + s] = value(s);
     if (ts.k > 0)
-      intersect_row(ts, value, a.n_words, lane, scratch[warp],
-                    a.r2 + (long long)t * a.n_words, a.pop2 + t);
+      intersect_row<kWordsInFlight>(ts, value, a.n_words, lane,
+                                    scratch[warp],
+                                    a.r2 + (long long)t * a.n_words,
+                                    a.pop2 + t);
   }
+}
+
+// Calls launch(std::integral_constant<int, words a lane keeps in flight>)
+// for the instantiation of `words_per_block`; kErrWidth for a width that
+// has none (no rounding to one that has).
+template <class Launch>
+int with_width(int words_per_block, Launch launch) {
+  static_assert(kNumWidths == 3, "a case for each width");
+  switch (words_per_block) {
+    case kWidths[0]:
+      return launch(std::integral_constant<int, kWidths[0] / 32>());
+    case kWidths[1]:
+      return launch(std::integral_constant<int, kWidths[1] / 32>());
+    case kWidths[2]:
+      return launch(std::integral_constant<int, kWidths[2] / 32>());
+  }
+  return kErrWidth;
 }
 
 }  // namespace
@@ -333,24 +372,33 @@ int cemr_max_clears() { return kMaxClears; }
 int cemr_table_set_bytes() { return (int)sizeof(TableSet); }
 int cemr_select_ctas() { return kSelectCtas; }
 int cemr_smem_cum_rows() { return kSmemCumRows; }
+int cemr_num_widths() { return kNumWidths; }
+int cemr_width(int i) { return i >= 0 && i < kNumWidths ? kWidths[i] : 0; }
+int cemr_error_width() { return kErrWidth; }
 
 const char* cemr_error_string(int code) {
+  if (code == kErrWidth) return "words_per_block has no instantiation";
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Each returns cudaGetLastError() after its launch (0 = cudaSuccess).
+// Each returns cudaGetLastError() after its launch (0 = cudaSuccess), or
+// kErrWidth, launching nothing, for a words_per_block with no
+// instantiation.
 // `table_set` points to a host TableSet (a type of this file only, so the
 // C interface takes it untyped), which the launch copies by value.
 int cemr_intersect(const void* table_set, const int32_t* idx, int n_in, int k0,
                    const int32_t* rows, const int32_t* bitpos, int n_out,
-                   int n_words, int32_t* r, int32_t* pop, void* stream) {
+                   int n_words, int32_t* r, int32_t* pop, int words_per_block,
+                   void* stream) {
   const unsigned blocks = (unsigned)((n_out + kWarpsPerBlock - 1)
                                      / kWarpsPerBlock);
-  intersect_kernel<<<blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
-      *static_cast<const TableSet*>(table_set), idx, n_in, k0, rows, bitpos,
-      n_out, n_words,
-      reinterpret_cast<uint32_t*>(r), pop);
-  return (int)cudaGetLastError();
+  return with_width(words_per_block, [&](auto words) {
+    intersect_kernel<decltype(words)::value>
+        <<<blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
+            *static_cast<const TableSet*>(table_set), idx, n_in, k0, rows,
+            bitpos, n_out, n_words, reinterpret_cast<uint32_t*>(r), pop);
+    return (int)cudaGetLastError();
+  });
 }
 
 int cemr_expand_select(const void* table_set, const int32_t* bm, int n_in,
@@ -358,7 +406,8 @@ int cemr_expand_select(const void* table_set, const int32_t* bm, int n_in,
                        const int32_t* idx, int k0, int32_t* scratch,
                        int32_t* rows, int32_t* bitpos, uint8_t* valid,
                        int32_t* total, int32_t* child_idx, int n_words,
-                       int32_t* r2, int32_t* pop2, void* stream) {
+                       int32_t* r2, int32_t* pop2, int words_per_block,
+                       void* stream) {
   SelectArgs a;
   a.bm = reinterpret_cast<const uint32_t*>(bm);
   a.n_in = n_in;
@@ -379,10 +428,12 @@ int cemr_expand_select(const void* table_set, const int32_t* bm, int n_in,
   const int ctas = max(1, min(kSelectCtas, (n_out + kSelectWarps - 1)
                                            / kSelectWarps));
   const size_t smem = a.scratch ? 0 : (size_t)(n_in + 1) * sizeof(int);
-  expand_select_kernel<<<ctas, kSelectWarps * 32, smem,
-                         (cudaStream_t)stream>>>(
-      a, *static_cast<const TableSet*>(table_set));
-  return (int)cudaGetLastError();
+  return with_width(words_per_block, [&](auto words) {
+    expand_select_kernel<decltype(words)::value>
+        <<<ctas, kSelectWarps * 32, smem, (cudaStream_t)stream>>>(
+            a, *static_cast<const TableSet*>(table_set));
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // extern "C"

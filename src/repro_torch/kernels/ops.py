@@ -4,19 +4,22 @@ The bitmap adapters keep the reference's `(R, pop)` contract, with pop
 flattened to (T,) int32, so the engine's contained-vertex prune never
 re-reduces R: `make_intersect_fn` is the `VectorEngine(intersect_fn=...)`
 hook, `make_fused_expand_intersect_fn` the reference's fused contract over
-a given selection. The engine's own kernel routes call the redesigned
-entry points (`tile_intersect`, `expand_select`, `expand_intersect`)
-directly. `decode_attention` is the LM decode path's attention. The
-wrappers pick the kernel or its plain version by the tensors' device.
+a given selection, which autotunes its word-block width when given none
+(`autotune_words_per_block`, as the reference's does). The engine's own
+kernel routes call the redesigned entry points (`tile_intersect`,
+`expand_select`, `expand_intersect`) directly. `decode_attention` is the
+LM decode path's attention. The wrappers pick the kernel or its plain
+version by the tensors' device.
 """
 from __future__ import annotations
 
 from . import ref
-from .bitmap_intersect import bitmap_intersect, fused_expand_intersect
+from .bitmap_intersect import (autotune_words_per_block, bitmap_intersect,
+                               fused_expand_intersect)
 from .flash_decode import flash_decode
 
 __all__ = ["make_intersect_fn", "make_fused_expand_intersect_fn",
-           "decode_attention"]
+           "autotune_words_per_block", "decode_attention"]
 
 
 def make_intersect_fn():
@@ -30,12 +33,19 @@ def make_intersect_fn():
     return fn
 
 
-def make_fused_expand_intersect_fn():
+def make_fused_expand_intersect_fn(*, words_per_block: int | None = None):
     """The reference's fused contract: (tables, parent idx (Tin, K0), rows,
-    bitpos, slots) → (R (T, W), pop (T,)), with no same-label clears."""
+    bitpos, slots) → (R (T, W), pop (T,)), with no same-label clears, at
+    `words_per_block`; None autotunes it for the call's (k, W) on the
+    call's device."""
 
     def fn(tables, idx, rows, bitpos, slots):
-        r, pop = fused_expand_intersect(tables, idx, rows, bitpos, slots)
+        wpb = words_per_block
+        if wpb is None:
+            wpb = autotune_words_per_block(len(tables), tables[0].shape[1],
+                                           device=rows.device)
+        r, pop = fused_expand_intersect(tables, idx, rows, bitpos, slots,
+                                        words_per_block=wpb)
         return r, pop.reshape(-1)
 
     return fn
