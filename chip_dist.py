@@ -32,13 +32,18 @@ the start); after it, every card's measured peak beside that reading.
      both mesh dims. At 512 seeds the placed step is held against one
      card's undistributed step (loss PLACE_LOSS_RTOL, gnorm
      PLACE_GNORM_RTOL); at 1,024 its loss against one card's forward of
-     the whole batch under `torch.no_grad()` (PLACE_LOSS_RTOL). At both,
-     the same forward in float64, placed and on one card, within
-     PLACE_LOSS_RTOL: this cell's float32 loss moves by up to 2.6e-4
-     between two valid summation orders on one card (a deterministic run
-     against the default atomics), so float64 is where the placement
-     itself is held. ms a step and model_flops over it as a share of the
-     four cards' float32 peak.
+     the whole batch under `torch.no_grad()` (PLACE_LOSS_RTOL). Both sides
+     of these float32 checks sum deterministically (`deterministic()`:
+     torch's deterministic algorithms, CUBLAS_WORKSPACE_CONFIG set in
+     every rank); the same comparisons in torch's default order (index_add
+     by atomics) run first and are recorded, not held. The shape has one
+     graph, so the loss squares one sum over every node, and its float32
+     value moves with the order of that sum; on a mesh `segment_sum` sums
+     such a range whole, in one card's row order (`chip_gnn_gap.py`
+     measures each source on one card). At both seed counts, the same
+     forward in float64, placed and on one card, within PLACE_LOSS_RTOL.
+     ms a step (the default order's) and model_flops over it as a share
+     of the four cards' float32 peak.
   2. qwen3-moe-30b-a3b x decode_32k at all 48 layers (phase 5c cuts it to
      12), batch 32, bf16 weights placed by the policy (experts over
      `model`) block by block as they are drawn, float32 activations over
@@ -98,6 +103,11 @@ CELL_MESH = {"minicpm3-4b decode_32k": (4, 1)}
 # sampled batch is 16 seeds)
 GNN_CHECK_SEEDS = 512
 GNN_CHECK_SEEDS_REDUCED = 8
+# the orders of equiformer-v2's float32 sums: the checks hold both sides
+# summed deterministically (HELD_ORDER); torch's defaults, whose index_add
+# adds by atomics, run beside them, recorded and not held
+ORDERS = ("atomics", "deterministic")
+HELD_ORDER = "deterministic"
 # qwen3-moe: the layers of the one-card check (phase 5c's cut) and the
 # decode batch (phase 5c's; the shape's 128 rows need 412 GB of cache)
 MOE_CHECK_LAYERS = 12
@@ -224,6 +234,57 @@ def _forward_loss(bundle, shape: str, mesh, batch, dtype) -> float:
         return float(full(model.loss(batch)[0]))
 
 
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms for the block (no warn-only mode:
+    an op without a deterministic kernel raises), then the caller's
+    setting again. On a card, CUBLAS_WORKSPACE_CONFIG must be set before
+    the process's first cuBLAS call."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
+def _f32_held(cs, bundle, shape: str, mesh, batch, dev, cut, fails: list,
+              where: str, order: str) -> dict:
+    """Cell 1's float32 comparisons with the sums of both sides in `order`
+    ("deterministic": under `deterministic()`; "atomics": torch's
+    defaults): with `cut` seeds the placed step against one card's
+    undistributed step (loss and gnorm), uncut the placed step's loss
+    against one card's forward under `torch.no_grad()`. A failed check
+    goes to `fails`."""
+    ctx = deterministic if order == "deterministic" else contextlib.nullcontext
+    r = {}
+    with ctx():
+        if cut is not None:
+            r["plain"] = cs._gnn_step(bundle, shape, None, batch, dev)
+            cs.release(dev)
+        r["placed"] = cs._gnn_step(bundle, shape, mesh, batch, dev)
+        cs.release(dev)
+        if cut is None:
+            model = bundle.init_fn_for(shape)(0)
+            with torch.no_grad():
+                r["forward_loss"] = float(model.loss(batch)[0])
+            del model
+            cs.release(dev)
+    if cut is not None:
+        r["loss_rel"] = _hold(fails, f"{where}: placed float32 loss",
+                              r["placed"]["loss"], r["plain"]["loss"],
+                              cs.PLACE_LOSS_RTOL)
+        r["gnorm_rel"] = _hold(fails, f"{where}: placed float32 gnorm",
+                               r["placed"]["gnorm"], r["plain"]["gnorm"],
+                               cs.PLACE_GNORM_RTOL)
+    else:
+        r["loss_rel"] = _hold(fails, f"{where}: placed float32 loss against "
+                              "one card's forward", r["placed"]["loss"],
+                              r["forward_loss"], cs.PLACE_LOSS_RTOL)
+    return r
+
+
 def cell_equiformer(cs, mesh, dev, reduced: bool, fails: list) -> dict:
     """Cell 1 (module docstring)."""
     from repro_torch.models.api import build_bundle
@@ -238,28 +299,10 @@ def cell_equiformer(cs, mesh, dev, reduced: bool, fails: list) -> dict:
         r = {"make_inputs_s": time.perf_counter() - t0,
              "nodes": batch["node_mask"].shape[0],
              "edges": batch["edge_mask"].shape[0]}
-        if cut is not None:
-            r["plain"] = cs._gnn_step(bundle, shape, None, batch, dev)
-            cs.release(dev)
-        r["placed"] = cs._gnn_step(bundle, shape, mesh, batch, dev)
-        cs.release(dev)
-        if cut is not None:
-            r["loss_rel"] = _hold(fails, f"{where}: placed float32 loss",
-                                  r["placed"]["loss"], r["plain"]["loss"],
-                                  cs.PLACE_LOSS_RTOL)
-            r["gnorm_rel"] = _hold(fails, f"{where}: placed float32 gnorm",
-                                   r["placed"]["gnorm"],
-                                   r["plain"]["gnorm"], cs.PLACE_GNORM_RTOL)
-        else:
-            model = bundle.init_fn_for(shape)(0)
-            with torch.no_grad():
-                r["forward_loss"] = float(model.loss(batch)[0])
-            del model
-            cs.release(dev)
-            r["loss_rel"] = _hold(fails, f"{where}: placed float32 loss "
-                                  "against one card's forward",
-                                  r["placed"]["loss"], r["forward_loss"],
-                                  cs.PLACE_LOSS_RTOL)
+        for order in ORDERS:
+            r[order] = _f32_held(cs, bundle, shape, mesh, batch, dev, cut,
+                                 fails if order == HELD_ORDER else [],
+                                 f"{where} ({order} sums)", order)
         # the same forward in float64, placed and on one card
         r["f64_placed"] = _forward_loss(bundle, shape, mesh, batch,
                                         torch.float64)
@@ -276,7 +319,7 @@ def cell_equiformer(cs, mesh, dev, reduced: bool, fails: list) -> dict:
         cs.release(dev)
         del batch
         out["check" if cut is not None else "uncut"] = r
-    uncut = out["uncut"]
+    uncut = out["uncut"]["atomics"]
     flops = bundle.model_flops(shape)
     out.update(seeds=seeds, ms_per_step=uncut["placed"]["ms"],
                model_flops=flops,
@@ -417,6 +460,8 @@ def cells_rank(rank: int, world: int, port: int, out_dir: str,
     Writes out_dir/cells<rank>.json; a failed check raises, which fails
     the spawn."""
     import torch.distributed as dist
+    # before this rank's first cuBLAS call: cell 1's deterministic sums
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs

@@ -289,6 +289,25 @@ Phases, in order; any failure exits non-zero:
               (equiformer-v2: 512 of 1,024); ms a step, peak memory, model_flops over the time as
               a share of the float32 peak (hw()["flops_f32"]). Prints phase
               5d's wall; `run_phase_5d(dev, card)` runs it alone;
+  examples — after phase 5d, before phase 5e: the port's five examples
+              (`examples/torch_*.py`), each `main` called in this process
+              at its documented defaults on the card (EXAMPLE_RUNS):
+              torch_quickstart (the Fig. 1 count held against
+              `cemr_match`, the 2k-vertex graph's ref and vector counts
+              equal); torch_match_queries twice, at its defaults (yeast at
+              scale 0.05, 20 queries of size 6; each count held against
+              `cemr_match`) and with `--dataset dblp --scale 1.0` (each
+              count held against a fresh Matcher's count of the query on
+              the card); torch_serve_recsys (each batch's top-10 and the
+              retrieval scores held against the bundle's plain CPU run on
+              the example's weights; requests/s printed); torch_train_lm
+              and torch_gnn_train (their own "loss decreased" assertion;
+              ms a step printed). Launch counts set to 0 just before each
+              `main` and read just after: the match examples'
+              tile_intersect and expand_select once per extend or boundary
+              covered (`PathCalls`), the other kernels never; the model
+              examples none. Each run's seconds and launches go into every
+              row of the kernels line (`launches_phase_examples`);
   5e. placement — last, once every other phase has freed the card: one
               spawned NCCL rank a visible card (`placement_rank`), a
               (data, model) mesh of them ((1, 1) on one card, (2, 2) on
@@ -354,7 +373,8 @@ Phases, in order; any failure exits non-zero:
               with phase 5d's 0 launches by path and phase 5e's
               launches; the partials' and merge's with phase 5e's held
               differences; each row with phase 5e's GNN steps' 0
-              launches), and last the line
+              launches and the examples phase's seconds and launches),
+              and last the line
               {"ok": true, "device": {"platform": "gpu", ...}}.
 
 It imports nothing of jax or of the JAX package `repro`.
@@ -3097,6 +3117,27 @@ def run_long_alone() -> dict:
     return res
 
 
+def run_examples_alone() -> dict:
+    """The examples phase alone on the card, the bitmap and flash_decode
+    libraries built first:
+
+        python3 -c "import sys; sys.path.insert(0, 'src');
+                    import chip_smoke as c; c.run_examples_alone()"
+    """
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import bitmap_intersect as bi
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_decode as fd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    for name, (lib, secs) in build_all(build, (bi.LIBRARY,
+                                               fd.LIBRARY)).items():
+        print(f"build: {lib.name} in {secs:.3f} s", flush=True)
+    return run_phase_examples(torch.device("cuda"), card)
+
+
 def flushed_ms(fn, flush, *, reps: int = 20) -> float:
     """Device time of one call that finds the L2 cache cold: a write of
     `flush` (twice the 50 MB L2) before each call, then a sleep kernel that
@@ -4369,6 +4410,202 @@ def run_phase_5d(dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------- examples phase
+# The port's five examples (`examples/torch_*.py`), each `main` called in
+# process at its documented defaults, on the card (no --device); runs
+# after phase 5d and before phase 5e, which needs the card free.
+EXAMPLE_RUNS = (
+    ("torch_quickstart", ()),
+    ("torch_match_queries", ()),
+    ("torch_match_queries dblp", ("--dataset", "dblp", "--scale", "1.0")),
+    ("torch_serve_recsys", ()),
+    ("torch_train_lm", ()),
+    ("torch_gnn_train", ()),
+)
+# the match examples launch the auto route's bitmap kernels, the model
+# examples none of the kernels line's
+MATCH_EXAMPLES = ("torch_quickstart", "torch_match_queries")
+# train_lm's --steps in the phase: None keeps its default (200); set it only
+# if those steps push the phase past about 120 s, and the phase prints it
+EXAMPLES_TRAIN_LM_STEPS = None
+
+
+def load_example(name: str):
+    """examples/<name>.py as a module."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def held_quickstart(r: dict, mod, cemr_match) -> dict:
+    """The Fig. 1 count against the port's `cemr_match`; the 2k-vertex
+    graph's two engines must agree."""
+    data, query = mod.fig1_graphs()
+    want = cemr_match(query, data).count
+    if r["fig1_count"] != want or len(r["embeddings"]) != want \
+            or r["ref_count"] != r["vec_count"]:
+        raise SystemExit(f"torch_quickstart on the card: Fig. 1 count "
+                         f"{r['fig1_count']} ({len(r['embeddings'])} "
+                         f"streamed) against cemr_match's {want}; 2k graph "
+                         f"ref {r['ref_count']}, vec {r['vec_count']}")
+    return {"fig1_count": want, "ref_count": r["ref_count"],
+            "vec_count": r["vec_count"], "vec_tiles": r["vec_tiles"],
+            "cache_info": str(r["cache_info"])}
+
+
+def held_match_queries(r: dict, api, cemr_match, dev, direct: bool) -> dict:
+    """Every query's count from the queue against `cemr_match` (numpy,
+    host) at the example's limit, or with `direct`, against a fresh
+    Matcher's `count` of the same query on the card."""
+    m = api.Matcher(r["dataset"], device=dev) if direct else r["matcher"]
+    got, want = [], []
+    for i, q in enumerate(r["queries"]):
+        got.append(r["results"][i])
+        if direct:
+            want.append(m.count(q, engine="vector", limit=r["limit"]).count)
+        else:
+            cq = m.compile(q)
+            want.append(cemr_match(q, r["dataset"].graph, limit=r["limit"],
+                                   preprocessed=(cq.cs, cq.an)).count)
+    if got != want or r["stats"]["failed"]:
+        raise SystemExit(f"torch_match_queries on {r['dataset']!r}: queue "
+                         f"counts {got} against "
+                         f"{'Matcher.count' if direct else 'cemr_match'} "
+                         f"{want}, stats {r['stats']}")
+    return {"queries": len(got), "embeddings": sum(got),
+            "held_against": "Matcher.count" if direct else "cemr_match",
+            "stats": r["stats"]}
+
+
+def held_serve_recsys(r: dict, build_bundle) -> dict:
+    """The example's model copied to the bundle's plain CPU run: each
+    batch's top-10 on the card and on the CPU held against the CPU's
+    float64 recompute (`held_top_k`, TRAIN_F32_RTOL: the same items
+    wherever the 10th and 11th scores are clearly apart), and the
+    retrieval scores within TRAIN_F32_RTOL of the largest."""
+    cpu = build_bundle(RECSYS_ARCH, reduced=True, device="cpu")
+    model = cpu.init_fn(1)
+    model.load_state_dict({k: v.cpu() for k, v in
+                           r["model"].state_dict().items()})
+    rows_equal = 0
+    for s, (vals, idx) in enumerate(r["top"]):
+        batch = cpu.make_inputs("serve_p99", seed=s)
+        want64 = scores64(model, batch["ids"], model.embed.table.detach())
+        vals_c, idx_c = cpu.steps["serve"](model, batch)
+        for where, (v, i) in (("card", (vals.cpu(), idx.cpu())),
+                              ("cpu", (vals_c, idx_c))):
+            held_top_k(v, i, want64, TRAIN_F32_RTOL,
+                       f"torch_serve_recsys batch {s} on the {where}")
+        rows_equal += int((idx.cpu().long() == idx_c.long()).all(-1).sum())
+    scores = cpu.steps["retrieval"](model,
+                                    cpu.make_inputs("retrieval_cand"))
+    got = r["retrieval_scores"].cpu()
+    err = float((got - scores).abs().max() / scores.abs().max())
+    if got.shape != scores.shape or not err <= TRAIN_F32_RTOL:
+        raise SystemExit(f"torch_serve_recsys retrieval: {tuple(got.shape)} "
+                         f"scores {err:.3g} of the largest from the CPU's")
+    return {"batches": len(r["top"]), "rows": len(r["top"]) * r["batch"],
+            "rows_equal_in_order": rows_equal, "retrieval_rel_err": err,
+            "requests_per_s": r["requests_per_s"]}
+
+
+def run_phase_examples(dev, card: str) -> dict:
+    """The examples phase (module docstring): each run of EXAMPLE_RUNS
+    with the launch counts set to 0 just before its `main` and read just
+    after, the match examples' bitmap launches once per boundary or
+    extend they covered (`PathCalls`), the model examples' none; then
+    each run's results held. Returns each run's seconds, launches (by
+    kernel, and by width for the width-taking wrappers) and checks."""
+    from repro_torch import api
+    from repro_torch.core import bitops as bitops_mod
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core import scheduler as sched_mod
+    from repro_torch.core.ref_engine import cemr_match
+    from repro_torch.kernels import bitmap_intersect as bi
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.api import build_bundle
+    t0 = time.perf_counter()
+    out = {"runs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, argv in EXAMPLE_RUNS:
+            name = key.split()[0]
+            mod = load_example(name)
+            argv = list(argv)
+            if name == "torch_match_queries":
+                argv += ["--state-path",
+                         os.path.join(tmp, f"{key.replace(' ', '_')}.json")]
+            if name == "torch_train_lm":
+                argv += ["--ckpt-dir", os.path.join(tmp, "train_lm")]
+                if EXAMPLES_TRAIN_LM_STEPS is not None:
+                    argv += ["--steps", str(EXAMPLES_TRAIN_LM_STEPS)]
+                    print(f"examples phase: torch_train_lm cut to "
+                          f"{EXAMPLES_TRAIN_LM_STEPS} steps (default 200)",
+                          flush=True)
+            calls = PathCalls(engine_mod, bitops_mod, sched_mod)
+            sync(dev)
+            ta = time.perf_counter()
+            reset_kernel_launches(bi, fd)
+            with calls:
+                r = mod.main(argv)
+            sync(dev)
+            launches = kernel_launch_counts(bi, fd)
+            by_width = launches_by_width(bi)
+            secs = time.perf_counter() - ta
+            where = f"example {key}"
+            if name in MATCH_EXAMPLES:
+                require_path_launches(where, {k: launches[k] for k in
+                                              launch_counts(bi)},
+                                      calls.calls)
+                if any(launches[fn.__name__] for fn in fd.WRAPPERS):
+                    raise SystemExit(f"{where} launched {launches}")
+            else:
+                require_no_launches(where, launches)
+            if name == "torch_quickstart":
+                held = held_quickstart(r, mod, cemr_match)
+            elif name == "torch_match_queries":
+                held = held_match_queries(r, api, cemr_match, dev,
+                                          direct=key != name)
+            elif name == "torch_serve_recsys":
+                held = held_serve_recsys(r, build_bundle)
+            elif name == "torch_train_lm":
+                held = {k: r[k] for k in ("steps_run", "restarts",
+                                          "first_loss", "last_loss",
+                                          "ms_per_step")}
+            else:
+                held = {k: r[k] for k in ("arch", "shape", "ms_per_step")}
+                held.update(first_loss=r["losses"][0],
+                            last_loss=r["losses"][-1])
+            out["runs"][key] = {"argv": argv, "seconds": secs,
+                                "launches": launches,
+                                "launches_by_width": by_width,
+                                "path_calls": dict(calls.calls),
+                                "held": held}
+            print(f"example {key} on {card}: {secs:.3f} s, launches "
+                  f"{launches}; " + json.dumps(held), flush=True)
+            del r
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"examples phase in {out['seconds']:.3f} s", flush=True)
+    return out
+
+
+def examples_launches(row: dict, ex: dict) -> dict:
+    """A kernels-line row's entry for each run of the examples phase: the
+    run's seconds and the row's kernel's launches in it, at the row's
+    width where its wrapper takes one."""
+    out = {}
+    for key, r in ex["runs"].items():
+        by_width = r["launches_by_width"].get(row["name"])
+        n = (by_width[row["words_per_block"]]
+             if by_width is not None and "words_per_block" in row
+             else r["launches"][row["name"]])
+        out[key] = {"launches": n, "seconds": r["seconds"]}
+    return out
+
+
 # ---------------------------------------------------------------- phase 5e
 # Phase 5e, placement: one rank a visible card (NCCL), a (data, model)
 # mesh of them ((1, 1) on one card, (2, 2) on four), the port's policy,
@@ -5354,8 +5591,9 @@ def main() -> int:
     for k in kernels:
         k["launches_phase_5d"] = {path: counts[k["name"]]
                                   for path, counts in rec["launches"].items()}
-    # phase 5e after everything else has freed the card: spawned ranks,
-    # then the dry runs on the host
+    # the examples phase, then phase 5e once everything else has freed
+    # the card: spawned ranks, then the dry runs on the host
+    ex = run_phase_examples(dev, card)
     place = run_phase_5e(card)
     held = place["decode"]["bf16"]["held"]
     held = {"flash_decode_partials": held["partials_max_abs_err"],
@@ -5369,6 +5607,8 @@ def main() -> int:
             k["max_abs_err_phase_5e"] = held[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], held[k["name"]])
     kernels += engine_kernel_rows(bi, place)
+    for k in kernels:
+        k["launches_phase_examples"] = examples_launches(k, ex)
 
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.3f} s",
           flush=True)

@@ -275,12 +275,27 @@ def segment_sum(values: torch.Tensor, ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """out[ids[e]] += values[e] over the first axis (`jax.ops.segment_sum`);
     0 for an empty segment. Inside `shard_rows`, values and ids are this
-    rank's rows, num_segments the whole range: each rank's partial sum is
-    reduce-scattered, and this rank's rows of the result come back (the
-    whole result when num_segments does not split evenly). Padded rows
-    must carry exact zeros."""
+    rank's rows, num_segments the whole range: where it splits evenly,
+    each rank's partial sum is reduce-scattered and this rank's rows of
+    the result come back; where it does not (a few segments, such as a
+    graph readout), every rank's rows are gathered and summed whole, in
+    the order one device sums them, and the whole result comes back.
+    Padded rows must carry exact zeros."""
+    mesh = row_mesh()
+    whole = mesh is not None and num_segments % mesh.size() != 0
+    if whole:
+        values, ids = _all_rows(values, mesh), _all_rows(ids, mesh)
     out = values.new_zeros((num_segments,) + values.shape[1:])
-    return _reduced(out.index_add(0, ids.long(), values), "sum")
+    out = out.index_add(0, ids.long(), values)
+    return out if whole else _reduced(out, "sum")
+
+
+def _all_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's rows of x in rank order, whole on every rank. What
+    follows runs alike on every rank, so the gradient arrives whole on
+    each, and the backward keeps this rank's rows of it."""
+    return DTensor.from_local(x, mesh, [Shard(0)], run_check=False) \
+        .redistribute(mesh, [Replicate()]).to_local()
 
 
 def segment_max(values: torch.Tensor, ids: torch.Tensor,
@@ -299,7 +314,8 @@ def segment_max(values: torch.Tensor, ids: torch.Tensor,
 def _reduced(part: torch.Tensor, op: str) -> torch.Tensor:
     """`part`, a rank's partial over a whole segment range, reduced (`op`)
     over the ranks of the `shard_rows` block: this rank's rows where the
-    range splits evenly, else the whole range. Outside a block, part."""
+    range splits evenly (always, for "sum": `segment_sum` sums an uneven
+    range whole), else the whole range. Outside a block, part."""
     mesh = row_mesh()
     if mesh is None:
         return part
@@ -307,8 +323,7 @@ def _reduced(part: torch.Tensor, op: str) -> torch.Tensor:
     split = part.shape[0] % n == 0
     if op == "sum":
         total = DTensor.from_local(part, mesh, [Partial()], run_check=False)
-        return total.redistribute(
-            mesh, [Shard(0) if split else Replicate()]).to_local()
+        return total.redistribute(mesh, [Shard(0)]).to_local()
     # max: every rank's partial gathered, then the max over the ranks, so
     # the gradient reaches the rank whose rows hold each maximum
     whole = DTensor.from_local(part[None], mesh, [Shard(0)],

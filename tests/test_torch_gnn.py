@@ -14,8 +14,20 @@ Tolerances:
 - segment ops, the GatedGCN layer, the rotations, SO2Conv, the radial and
   angular bases and the core primitives: 1e-5 absolute at values of order
   1 (float32 sums in another order); rotating forth and back returns the
-  input within 1e-5.
+  input within 1e-5;
+- `segment_sum` inside `shard_rows` on four gloo ranks
+  (`torch_dist_cases.py segments`): within 1e-5 of `jax.ops.segment_sum`;
+  against the unsharded `segment_sum`, equal bit for bit where the range
+  does not split over the ranks (summed whole, in one device's order) and
+  within 1e-6 where it does (partials added across ranks); the values'
+  gradients exact.
 """
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -37,6 +49,10 @@ from repro_torch.nn import core  # noqa: E402
 from repro_torch.nn import equivariant as eq  # noqa: E402
 from repro_torch.nn import gnn  # noqa: E402
 from torch_lm_common import flat_np, perturb_tree, to_np  # noqa: E402
+
+HERE = Path(__file__).resolve().parent
+sys.path.insert(0, str(HERE))
+import torch_dist_cases as cases  # noqa: E402
 
 ATOL = 1e-5
 SH_ATOL = 1e-5
@@ -169,6 +185,53 @@ def test_segment_max_of_an_empty_segment_is_minus_inf():
                                num_segments=9)
     np.testing.assert_array_equal(to_np(got), np.asarray(want))
     assert torch.isneginf(got[-1]).all()
+
+
+@pytest.fixture(scope="module")
+def sharded_segments(tmp_path_factory):
+    """`tests/torch_dist_cases.py segments`: `segment_sum` inside
+    `shard_rows` on four gloo ranks, in a subprocess of its own."""
+    out = tmp_path_factory.mktemp("segments")
+    env = dict(os.environ, PYTHONPATH=str(HERE.parent / "src"))
+    proc = subprocess.run([sys.executable, str(HERE / "torch_dist_cases.py"),
+                           "segments", str(out)], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with open(out / "segments.json") as f:
+        return dict(np.load(out / "segments.npz")), json.load(f)
+
+
+@pytest.mark.parametrize("n,rows,empty", cases.SEGMENT_CASES)
+def test_sharded_segment_sum_matches_the_reference(sharded_segments, n,
+                                                   rows, empty):
+    """Each rank's rows of the values: a range of segments that does not
+    split over the four ranks is summed whole, in one device's row order,
+    so it equals the unsharded `segment_sum` (index_add) bit for bit; a
+    range that splits is reduce-scattered, within 1e-6 of it (the ranks'
+    partials added across ranks). Both within ATOL of
+    `jax.ops.segment_sum` on the same numpy inputs, empty segments exactly
+    0; the values' gradient of a weighted sum of the result is exactly the
+    weights of their segments on every rank."""
+    arrays, res = sharded_segments
+    values, ids, w = cases.segment_inputs(n, rows, empty)
+    key = f"{n}-{rows}-{int(empty)}"
+    got = arrays[f"{key}/out"]
+    want = jax.ops.segment_sum(jnp.asarray(values), jnp.asarray(ids),
+                               num_segments=n)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=ATOL)
+    one = to_np(core.segment_sum(torch.from_numpy(values),
+                                 torch.from_numpy(ids), n))
+    whole = n % cases.WORLD != 0
+    if whole:
+        np.testing.assert_array_equal(got, one)
+        assert res[key]["rows_back"] == [n, 3]
+        assert res[key]["equal_on_every_rank"]
+    else:
+        np.testing.assert_allclose(got, one, rtol=0, atol=1e-6)
+        assert res[key]["rows_back"] == [n // cases.WORLD, 3]
+    if empty:
+        assert not got[1::2].any()
+    np.testing.assert_array_equal(arrays[f"{key}/grad"], w[ids])
 
 
 def test_gatedgcn_layer_matches_the_reference():

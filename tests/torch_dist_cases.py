@@ -5,6 +5,7 @@ package:
 
     python tests/torch_dist_cases.py ranks OUT     # 4 gloo ranks, (2, 2)
     python tests/torch_dist_cases.py gnn OUT       # 4 gloo ranks, (2, 2)
+    python tests/torch_dist_cases.py segments OUT  # 4 gloo ranks, (2, 2)
     python tests/torch_dist_cases.py dryrun OUT    # fake groups of 8 and 1
 
 `ranks` spawns four gloo CPU ranks on a (data, model) = (2, 2) mesh; each
@@ -25,6 +26,14 @@ listed (those with one dim split over two mesh dims marked). Rank 0 writes the l
 gnorm, updated parameters and the guard's lists. Then reduced qwen3-moe
 placed block by block as it is drawn (`init_fn(mesh=)`) is compared with
 the same model placed whole.
+
+`segments` spawns four gloo CPU ranks on (2, 2), flattened to one dim as
+a GNN is placed, and runs `core.segment_sum` inside `shard_rows` on each
+rank's rows of the seeded SEGMENT_CASES: ranges of 1 and 6 segments (not
+a multiple of four: summed whole on every rank) and of 8 and 16 (split:
+reduce-scattered), two of them with empty segments, each with the
+gradient of a seeded weighted sum of the result. Rank 0 writes every
+rank's result and gradient.
 
 `dryrun` traces reduced cells, the engine cell and a known sequence of
 redistributes on fake groups of 8 ranks ((4, 2)) and of 1 ((1, 1)).
@@ -50,12 +59,27 @@ N_ITEMS = 512
 TIMEOUT = datetime.timedelta(seconds=240)
 GNN_CELLS = (("gatedgcn", "full_graph_sm"), ("gatedgcn", "molecule"),
              ("nequip", "molecule"), ("equiformer-v2", "molecule"),
-             ("dimenet", "molecule"))
+             ("dimenet", "molecule"), ("equiformer-v2", "minibatch_lg"))
+# (segments, rows, empty segments): `segment_inputs`
+SEGMENT_CASES = ((1, 64, False), (6, 64, True), (8, 64, False),
+                 (16, 96, True))
 
 
 def train_batch(vocab: int) -> np.ndarray:
     return np.random.default_rng(11).integers(
         0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+
+
+def segment_inputs(n: int, rows: int, empty: bool) -> tuple:
+    """A SEGMENT_CASES case's seeded values (rows, 3) float32, segment ids
+    (rows,) int32 (only even ones with `empty`, so the odd segments are
+    empty) and the weights (n, 3) of the sum whose gradient is taken."""
+    rng = np.random.default_rng(1000 + n)
+    values = rng.standard_normal((rows, 3)).astype(np.float32)
+    ids = rng.integers(0, n, rows).astype(np.int32)
+    if empty:
+        ids -= ids % 2
+    return values, ids, rng.standard_normal((n, 3)).astype(np.float32)
 
 
 def compression_inputs(rank: int) -> dict:
@@ -77,7 +101,8 @@ def _rank(rank: int, port: int, out: str, mode: str = "ranks") -> None:
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=WORLD, rank=rank, timeout=TIMEOUT)
     try:
-        results = (_cases if mode == "ranks" else _gnn_cases)(rank, out)
+        results = {"ranks": _cases, "gnn": _gnn_cases,
+                   "segments": _segment_cases}[mode](rank, out)
         if rank == 0:
             np.savez(os.path.join(out, f"{mode}.npz"),
                      **results.pop("arrays"))
@@ -187,6 +212,40 @@ def _gnn_cases(rank: int, out: str) -> dict:
         "values_equal": all(torch.equal(full(p.detach()), full(wp[k].detach()))
                             for k, p in by_block.named_parameters()),
         "experts": [str(q) for q in by_block.blocks[0].ffn.wi.placements]}
+    return res
+
+
+def _segment_cases(rank: int, out: str) -> dict:
+    import torch.distributed as dist
+    from repro_torch.distributed import policy
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.nn import core
+
+    flat = policy.placement_mesh("gnn", make_local_mesh(2, 2, device="cpu"))
+    res = {"arrays": {}}
+    for n, rows, empty in SEGMENT_CASES:
+        values, ids, w = segment_inputs(n, rows, empty)
+        per = rows // WORLD
+        mine = slice(rank * per, (rank + 1) * per)
+        v = torch.from_numpy(values[mine]).requires_grad_()
+        with core.shard_rows(flat):
+            got = core.segment_sum(v, torch.from_numpy(ids[mine]), n)
+        whole = n % WORLD != 0
+        wt = torch.from_numpy(w)
+        if not whole:       # this rank's rows of the result
+            wt = wt[rank * (n // WORLD):(rank + 1) * (n // WORLD)]
+        (got * wt).sum().backward()
+        outs = [torch.empty_like(got) for _ in range(WORLD)]
+        dist.all_gather(outs, got.detach())
+        grads = [torch.empty_like(v) for _ in range(WORLD)]
+        dist.all_gather(grads, v.grad)
+        key = f"{n}-{rows}-{int(empty)}"
+        res["arrays"][f"{key}/out"] = (outs[0] if whole
+                                       else torch.cat(outs)).numpy()
+        res["arrays"][f"{key}/grad"] = torch.cat(grads).numpy()
+        res[key] = {"rows_back": list(got.shape),
+                    "equal_on_every_rank": all(torch.equal(o, outs[0])
+                                               for o in outs)}
     return res
 
 
@@ -443,4 +502,5 @@ if __name__ == "__main__":
     sys.path.insert(0, str(ROOT / "src"))
     mode, out_dir = sys.argv[1], sys.argv[2]
     os.makedirs(out_dir, exist_ok=True)
-    {"ranks": run_ranks, "gnn": run_gnn, "dryrun": run_dryrun}[mode](out_dir)
+    {"ranks": run_ranks, "gnn": run_gnn, "dryrun": run_dryrun,
+     "segments": lambda out: run_ranks(out, "segments")}[mode](out_dir)
