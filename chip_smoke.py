@@ -39,7 +39,14 @@ Phases, in order; any failure exits non-zero:
               32,768, 64), in all four (q, cache) dtype pairs,
               with ragged lengths and with none, and at S = 32,768 with
               lengths chunk - 1, chunk, chunk + 1 and 2 chunk for the chunk
-              that `split_plan` picks, within FD_TOL (below);
+              that `split_plan` picks, within FD_TOL (below); the combine
+              at 1,025 chunks (`check_fd_many_chunks`, FD_MANY_SHAPE at
+              B 1): flash_decode at lengths 1, chunk +- 1 and S in all four
+              dtype pairs and NaN at length 0, flash_decode_partials with
+              one chunk of a block holding positions and with none
+              (exactly (0, -inf, 0)), flash_decode_merge of 1,025 rows a
+              (b, h), 90 % empty with NaN in their unused acc, and rows
+              that start at an odd float offset;
   4. matcher path — `repro_torch.api.Matcher.count(engine="vector")` on
               the synthetic dblp (size-8 and size-16 queries) and human
               (size-8) datasets at scale 1.0, plus a size-8 query on dblp
@@ -187,7 +194,8 @@ Phases, in order; any failure exits non-zero:
               one layer's flash_decode beside its bound, the plain version
               and SDPA (`time_fd_shape`), its split and combine timed apart
               (profiler, and the combine alone through
-              `flash_decode_merge`). `sharded_decode_attention` on layer
+              `flash_decode_merge`, beside its bound: the workspace read
+              and the output written once). `sharded_decode_attention` on layer
               0's cache over 1, 2 and 4 lanes of the card, counts set to 0
               just before and read just after (a partials call a lane,
               each a split and a combine, a merge a call), at the whole
@@ -653,6 +661,10 @@ DECODE_STEPS = 3
 # its sum fails; `fd_agrees` also fails when a zero row would pass.
 FD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-4, 8e-3)}
 FD_DTYPES = (torch.float32, torch.bfloat16)
+# The combine at many chunks: one row (B 1) of a 4-lane long_500k block's
+# length with 3 KV heads, which split_plan cuts into 1,025 chunks of 128
+# positions (the 2-KV-head block takes 65 chunks of 2,048)
+FD_MANY_SHAPE = (1, 12, 3, 131_073, 128)
 # The long-context phase: qwen2-1.5b's long_500k cell uncut (batch 1, a
 # bfloat16 cache of 524,288 + LONG_STEPS + 1 positions, 15.0 GB). Lengths
 # start at 524,288, set rather than drawn by make_inputs (which draws them
@@ -2413,6 +2425,134 @@ def check_flash_decode(fd, ref, dev) -> tuple[dict, int]:
     return errs, n
 
 
+def merge_rows(gen, shape) -> tuple:
+    """Partial rows (B, H, n, D + 2) for flash_decode_merge, `shape` (B, H,
+    n, D) with H >= 2: seeded acc and m, l >= 1; 90 % of the rows empty (m
+    = -inf, l = 0), in head 0 all but the last, in head 1 all. Returns the
+    rows with NaN in every empty row's acc (the kernel's input, whose empty
+    acc must go unused) and the same rows with 0 there (the plain
+    version's)."""
+    b, h, n, d = shape
+    dev = gen.device
+    parts = torch.randn((b, h, n, d + 2), generator=gen, device=dev)
+    parts[..., -1] = parts[..., -1].abs() + 1.0
+    empty = torch.rand((b, h, n), generator=gen, device=dev) < 0.9
+    empty[:, 0] = True
+    empty[:, 0, -1] = False                 # only the last row holds one
+    empty[:, 1] = True                      # no row holds one
+    parts[..., -2] = parts[..., -2].masked_fill(empty, float("-inf"))
+    parts[..., -1] = parts[..., -1].masked_fill(empty, 0.0)
+    zeroed = parts.clone()
+    zeroed[..., :d] = zeroed[..., :d].masked_fill(empty[..., None], 0.0)
+    parts[..., :d] = parts[..., :d].masked_fill(empty[..., None],
+                                                float("nan"))
+    return parts, zeroed
+
+
+def check_fd_many_chunks(fd, ref, dev) -> tuple[dict, int]:
+    """The combine at more than 1,000 chunks (FD_MANY_SHAPE, 1,025 chunks
+    of 128). flash_decode in all four dtype pairs at lengths 1, chunk -
+    1, chunk + 1 (all chunks but the first one or two empty) and S, held
+    within FD_TOL, and at length 0 (no
+    chunk holds a position: NaN, as the plain version gives);
+    flash_decode_partials over the same positions as a block at offset
+    `off` of a longer row, with one chunk holding positions and with none
+    (exactly (0, -inf, 0)), held by `partials_agree`; flash_decode_merge
+    of 1,025 rows a (b, h), most of them empty with NaN in their acc
+    (which the kernel must not use), one (b, h) whose only non-empty row
+    is the last and one with none (NaN); the same at an odd D and at D =
+    256, over 600 rows (8 warps a (b, h)) and 40 (4 warps), and over 600
+    rows of a contiguous view that starts 4 bytes past an 8-byte boundary
+    (the combine's scalar reads); flash_decode at an odd D over a few
+    chunks. Returns the largest absolute difference per
+    output dtype and the number of comparisons."""
+    b, h, hkv, s, d = FD_MANY_SHAPE
+    chunk, n_chunks, _ = fd.split_plan(b, h, hkv, s, d)
+    if n_chunks < 1_000:
+        raise SystemExit(f"FD_MANY_SHAPE splits into {n_chunks} chunks")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rng = np.random.default_rng(6)
+    errs = {str(t).removeprefix("torch."): 0.0 for t in FD_DTYPES}
+    n = 0
+    for q_dtype in FD_DTYPES:
+        for kv_dtype in FD_DTYPES:
+            q, k, v, _ = flash_decode_inputs(gen, rng, FD_MANY_SHAPE,
+                                             q_dtype, kv_dtype, dev, [s])
+            key = str(q_dtype).removeprefix("torch.")
+            for length in (1, chunk - 1, chunk + 1, s):
+                lens = torch.full((b,), length, dtype=torch.int32,
+                                  device=dev)
+                errs[key] = max(errs[key], fd_agrees(
+                    fd.flash_decode(q, k, v, lens),
+                    ref.flash_decode_ref(q, k, v, lens),
+                    f"shape {FD_MANY_SHAPE} ({n_chunks} chunks) q {q_dtype} "
+                    f"cache {kv_dtype} length {length}"))
+                n += 1
+            none = torch.zeros((b,), dtype=torch.int32, device=dev)
+            got = fd.flash_decode(q, k, v, none)
+            if not (bool(torch.isnan(got).all()) and bool(
+                    torch.isnan(ref.flash_decode_ref(q, k, v, none)).all())):
+                raise SystemExit(f"flash_decode at length 0 over "
+                                 f"{n_chunks} chunks: not NaN")
+            n += 1
+    q, k, v, _ = flash_decode_inputs(gen, rng, FD_MANY_SHAPE,
+                                     torch.bfloat16, torch.bfloat16, dev,
+                                     [s])
+    off = 3 * s
+    for length in (off + chunk - 1, off):
+        lens = torch.full((b,), length, dtype=torch.int32, device=dev)
+        partials_agree(fd.flash_decode_partials(q, k, v, lens, off),
+                       ref.flash_decode_partials_ref(q, k, v, lens, off),
+                       f"a block of {n_chunks} chunks at offset {off}, "
+                       f"length {length}")
+        n += 1
+    # the combine's other instantiations: an odd D (scalar reads) and D =
+    # 256, at 8 warps (600 rows) and 4 (40 rows); rows at an odd float
+    # offset (scalar reads at an even D)
+    for shape, odd_start in (((b, h, n_chunks, d), False),
+                             ((2, 3, 600, 17), False),
+                             ((2, 3, 40, 17), False),
+                             ((2, 3, 600, 256), False),
+                             ((2, 3, 40, 256), False),
+                             ((2, 3, 600, 128), True)):
+        parts, zeroed = merge_rows(gen, shape)
+        if odd_start:
+            buf = torch.empty(parts.numel() + 1, device=dev)
+            parts = buf[1:].view(parts.shape)
+            parts.copy_(zeroed)
+            if parts.data_ptr() % 8 == 0 or not parts.is_contiguous():
+                raise SystemExit("the odd-offset merge rows are aligned")
+        for dtype in FD_DTYPES:
+            got = fd.flash_decode_merge(parts, dtype)
+            want = ref.flash_decode_merge_ref(zeroed, dtype)
+            if not (bool(torch.isnan(got[:, 1]).all())
+                    and bool(torch.isnan(want[:, 1]).all())):
+                raise SystemExit(f"flash_decode_merge of {shape[2]} empty "
+                                 f"rows: not NaN")
+            key = str(dtype).removeprefix("torch.")
+            errs[key] = max(errs[key], fd_agrees(
+                torch.cat([got[:, :1], got[:, 2:]], 1),
+                torch.cat([want[:, :1], want[:, 2:]], 1),
+                f"merge of {shape} rows, 90 % empty"
+                f"{' at an odd offset' if odd_start else ' with NaN acc'}, "
+                f"{dtype}"))
+            n += 1
+    # flash_decode at an odd D over a few chunks, ragged lengths
+    odd = (2, 4, 2, 3_000, 17)
+    for q_dtype in FD_DTYPES:
+        for kv_dtype in FD_DTYPES:
+            q, k, v, lens = flash_decode_inputs(gen, rng, odd, q_dtype,
+                                                kv_dtype, dev)
+            key = str(q_dtype).removeprefix("torch.")
+            errs[key] = max(errs[key], fd_agrees(
+                fd.flash_decode(q, k, v, lens),
+                ref.flash_decode_ref(q, k, v, lens),
+                f"shape {odd} ({fd.split_plan(*odd)[1]} chunks) q {q_dtype} "
+                f"cache {kv_dtype}"))
+            n += 1
+    return errs, n
+
+
 def check_lm_reduced(build_bundle, dev) -> float:
     """The reduced qwen2-1.5b's four float32 decode steps on the card
     against the same steps on the CPU: same weights, same random cache,
@@ -2709,7 +2849,8 @@ def time_fd_parts(fd, dev, k, v, lens, h: int) -> dict:
     kernels timed apart: the split and the combine from the profiler's
     device times, and the combine alone with CUDA events through
     `flash_decode_merge` (the same combine kernel, grid and chunk count)
-    over a workspace-shaped input."""
+    over a workspace-shaped input; the combine's bound, the workspace's
+    bytes read once and the output's written once over the HBM rate."""
     b, s, hkv, d = k.shape
     gen = torch.Generator(device=dev).manual_seed(3)
     q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -2719,9 +2860,12 @@ def time_fd_parts(fd, dev, k, v, lens, h: int) -> dict:
     ws = torch.randn((b, h, n_chunks, d + 2), generator=gen, device=dev)
     ws[..., -1].abs_()
     combine_ms = median_ms(lambda: fd.flash_decode_merge(ws, q.dtype))
+    combine_bytes = ws.numel() * 4 + q.numel() * q.element_size()
     return {"split_ms": by_kernel["split_"],
             "combine_ms": by_kernel["combine_kernel"],
-            "combine_events_ms": combine_ms, "chunk": chunk,
+            "combine_events_ms": combine_ms,
+            "combine_bound_ms": combine_bytes / hw()["hbm_bw"] * 1e3,
+            "combine_bytes": combine_bytes, "chunk": chunk,
             "n_chunks": n_chunks, "combine_ctas": b * h}
 
 
@@ -3056,7 +3200,9 @@ def run_long_500k(bi, fd, kops, ref, bundle, model, dev, card: str) -> dict:
           f"{layer['split_ms']} ms, combine {layer['combine_ms']} ms "
           f"(profiler), combine alone {layer['combine_events_ms']:.6f} ms "
           f"(CUDA events, {layer['n_chunks']} chunks over "
-          f"{layer['combine_ctas']} CTAs)", flush=True)
+          f"{layer['combine_ctas']} CTAs), combine bound "
+          f"{layer['combine_bound_ms']:.6f} ms ({layer['combine_bytes']} B)",
+          flush=True)
     sharded = check_long_sharded(fd, cp, mesh_mod, ref, dev, k0, v0,
                                  cfg.n_heads, seq)
     print(f"sharded {LONG_SHAPE} on {card}: " + json.dumps(sharded),
@@ -3110,6 +3256,10 @@ def run_long_alone() -> dict:
     errs, n = check_flash_decode(fd, ref, dev)
     print(f"flash_decode agrees with its plain version in {n} cases, "
           f"max_abs_err by output dtype {errs}", flush=True)
+    errs, n = check_fd_many_chunks(fd, ref, dev)
+    print(f"flash_decode, its partials and merge agree with their plain "
+          f"versions at {FD_MANY_SHAPE} in {n} cases, max_abs_err by output "
+          f"dtype {errs}", flush=True)
     bundle = build_bundle(LM_ARCH, device=dev)
     model = bundle.init_fn(0, dtype=torch.bfloat16)
     res = run_long_500k(bi, fd, kops, ref, bundle, model, dev, card)
@@ -5354,6 +5504,12 @@ def main() -> int:
     print(f"flash_decode agrees with its plain version in {n_fd} cases, "
           f"max_abs_err by output dtype {fd_errs} "
           f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    t0 = time.perf_counter()
+    many_errs, n_many = check_fd_many_chunks(fd, ref, dev)
+    print(f"flash_decode, its partials and merge agree with their plain "
+          f"versions at {FD_MANY_SHAPE} ({fd.split_plan(*FD_MANY_SHAPE)[1]} "
+          f"chunks) in {n_many} cases, max_abs_err by output dtype "
+          f"{many_errs} ({time.perf_counter() - t0:.3f} s)", flush=True)
 
     work = prepare(api, cemr_match)
     by_route, launches, widths = {}, {}, {}
@@ -5541,6 +5697,7 @@ def main() -> int:
                 "by_kernel": res["launches_by_kernel"]}
          for path, res in (("serve", serve_res), ("decode_32k", d32k))},
         {**{f"grid {k}": v for k, v in fd_errs.items()},
+         **{f"many chunks {k}": v for k, v in many_errs.items()},
          "serve loop": serve_res["held_max_abs_err"],
          "decode_32k step": d32k["vs_plain"]["attention_held"]
                             ["max_abs_err"]}))

@@ -31,8 +31,10 @@
 //   (acc[D], m, l) per query head in fp32 to the wrapper's workspace
 //   (B, H, n_chunks, D + 2), and `combine_kernel` merges the chunks of one
 //   (b, h) with the log-sum-exp rescale and writes out in q's dtype; all
-//   chunks empty gives 0/0 = NaN. With one chunk the CTA writes out
-//   itself.
+//   chunks empty gives 0/0 = NaN. The combine spreads one (b, h)'s rows
+//   over the warps of a CTA, so its time follows the bytes it reads and
+//   not n_chunks load latencies (see combine_kernel).
+//   With one chunk the CTA writes out itself.
 // * Partials of a cache block (context-parallel decode, the reference's
 //   src/repro/distributed/context_parallel.py `_local_partials` per shard
 //   and its pmax / psum combine). `cemr_flash_decode_partials` runs the
@@ -766,45 +768,177 @@ split_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
 }
 
-// out[b, h, :] = sum_c exp(m_c - M) acc_c / sum_c exp(m_c - M) l_c over
-// the chunks of one (b, h), M = max_c m_c; chunks with m_c = -inf (no
-// position) are skipped, so a row with none gives 0/0 = NaN. PARTIALS:
-// write the merged partial row (acc[D], m, l) = (sum_c exp(m_c - M)
-// acc_c, M, sum_c exp(m_c - M) l_c) in fp32 to `part` (B, H, D + 2)
-// instead; a row with no position gives the empty partial (0, -inf, 0).
-// The same log-sum-exp merge serves three callers: the chunks of one
-// flash_decode call, the chunks of one cache block
-// (cemr_flash_decode_partials) and the blocks' partial rows
-// (cemr_flash_decode_merge), which is the reference's pmax / psum combine
-// of context-parallel decode (src/repro/distributed/context_parallel.py).
-template <typename TQ, bool PARTIALS>
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------
+// The combine: out[b, h, :] = sum_c exp(m_c - M) acc_c / sum_c exp(m_c -
+// M) l_c over the n_chunks rows (acc[D], m, l) of one (b, h), M = max_c
+// m_c; a row with m_c = -inf (no position) weighs nothing and its acc
+// (which the split leaves unwritten) is never used, so a (b, h) with none
+// gives 0/0 = NaN. PARTIALS: write the
+// merged row (acc[D], m, l) = (sum_c exp(m_c - M) acc_c, M, sum_c exp(m_c
+// - M) l_c) in fp32 to `part` (B, H, D + 2) instead; a (b, h) with no
+// position gives the empty row (0, -inf, 0). The same log-sum-exp merge
+// serves three callers: the chunks of one flash_decode call, the chunks
+// of one cache block (cemr_flash_decode_partials) and the blocks' partial
+// rows (cemr_flash_decode_merge), which is the reference's pmax / psum
+// combine of context-parallel decode
+// (src/repro/distributed/context_parallel.py).
+//
+// Bound: bytes, the rows read once (long_500k: 12 x 257 rows of 520 B,
+// 1.6 MB, 0.48 us at 3.35 TB/s). A walk of the rows one after another
+// would cost n_chunks dependent load latencies, so the rows of one (b, h)
+// are spread and every load a warp needs is issued at once:
+// * one CTA a (b, h) of `blockDim.x / 32` warps (`combine_warps`, from
+//   n_chunks alone); each warp takes a contiguous share of the rows;
+// * a warp takes its rows up to U at a time: lane j loads (m, l) of row j
+//   while every lane loads its slice of every row's acc (float2 a lane
+//   when D is even and the rows 8-byte aligned), all in one round trip.
+//   Then the rows' max (shuffles), each row's weight exp(m_c - max) on its
+//   own lane (one expf a row) and the weighted sum; a row with m_c = -inf
+//   is selected out, never multiplied, so whatever its acc holds is not
+//   used;
+// * the warps' rows (acc, m, l) merge through shared memory by the same
+//   rescale.
+constexpr int kCombineMaxWarps = 16;
+// acc floats a lane holds in flight: rows a warp loads at once, by D
+constexpr int kCombineBatchFloats = 64;
+
+// E: floats a lane reads at a time (2 when D is even and ws 8-byte
+// aligned: every row and its (m, l) pair are then 8-byte aligned); lane t
+// owns dims (t + 32 s) E + e, s < kSlots, e < E.
+template <typename TQ, bool PARTIALS, int DPAD, int E>
+__global__ void __launch_bounds__(kCombineMaxWarps * 32)
 combine_kernel(const float* __restrict__ ws, TQ* __restrict__ out,
                float* __restrict__ part, int n_chunks, int head_dim) {
+  constexpr int kSlots = (DPAD + 32 * E - 1) / (32 * E);
+  constexpr int U = kCombineBatchFloats / (kSlots * E) < 16
+                        ? kCombineBatchFloats / (kSlots * E)
+                        : 16;
+  static_assert(U >= 1 && U <= 32, "a batch's rows are one a lane");
+  constexpr unsigned kAll = 0xffffffffu;
+  __shared__ float rows_s[kCombineMaxWarps][DPAD + 2];  // a row a warp
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  const long long bh = blockIdx.x;
   const int wrow = head_dim + 2;
-  const float* w = ws + (long long)blockIdx.x * n_chunks * wrow;
-  float m_all = -INFINITY;
-  for (int c = 0; c < n_chunks; ++c)
-    m_all = fmaxf(m_all, w[c * wrow + head_dim]);
-  for (int d = threadIdx.x; d < head_dim; d += blockDim.x) {
-    float l = 0.f, a = 0.f;
-    for (int c = 0; c < n_chunks; ++c) {
-      const float* wc = w + c * wrow;
-      const float mc = wc[head_dim];
-      if (mc == -INFINITY) continue;
-      const float s = expf(mc - m_all);
-      l += s * wc[head_dim + 1];
-      a += s * wc[d];
-    }
-    if constexpr (PARTIALS) {
-      float* p = part + (long long)blockIdx.x * wrow;
-      p[d] = a;
-      if (d == 0) {
-        p[head_dim] = m_all;
-        p[head_dim + 1] = l;
+  const float* w = ws + bh * n_chunks * wrow;
+  // this warp's rows: a contiguous share of the (b, h)'s
+  const int per = (n_chunks + n_warps - 1) / n_warps;
+  const int c_begin = min(n_chunks, warp * per);
+  const int c_end = min(n_chunks, c_begin + per);
+
+  float m_run = -INFINITY, l_run = 0.f;
+  float acc[kSlots][E];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[s][e] = 0.f;
+
+  for (int g0 = c_begin; g0 < c_end; g0 += U) {
+    const int nr = min(U, c_end - g0);       // warp-uniform
+    // every load of the batch at once: (m, l) of row g0 + lane, and this
+    // lane's slice of each row's acc
+    float mc = -INFINITY, lc = 0.f;
+    if (lane < nr) {
+      const float* p = w + (long long)(g0 + lane) * wrow + head_dim;
+      if constexpr (E == 2) {
+        const float2 ml = *reinterpret_cast<const float2*>(p);
+        mc = ml.x;
+        lc = ml.y;
+      } else {
+        mc = p[0];
+        lc = p[1];
       }
-    } else {
-      out[(long long)blockIdx.x * head_dim + d] = from_float<TQ>(a / l);
+    }
+    float val[U][kSlots][E];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float* r = w + (long long)(g0 + u) * wrow;
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int d0 = (lane + 32 * s) * E;
+        const bool ok = u < nr && d0 < head_dim;
+        if constexpr (E == 2) {
+          const float2 x = ok ? *reinterpret_cast<const float2*>(r + d0)
+                              : make_float2(0.f, 0.f);
+          val[u][s][0] = x.x;
+          val[u][s][1] = x.y;
+        } else {
+          val[u][s][0] = ok ? r[d0] : 0.f;
+        }
+      }
+    }
+    float mg = mc;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mg = fmaxf(mg, __shfl_xor_sync(kAll, mg, off));
+    if (mg == -INFINITY) continue;            // warp-uniform: no position
+    const float wc = mc == -INFINITY ? 0.f : expf(mc - mg);
+    float lg = wc * lc;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      lg += __shfl_xor_sync(kAll, lg, off);
+    float ag[kSlots][E];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s)
+#pragma unroll
+      for (int e = 0; e < E; ++e) ag[s][e] = 0.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      // row u's weight; 0 for a row past nr or with no position, whose
+      // acc is then selected out (it may hold anything)
+      const float wu = __shfl_sync(kAll, wc, u);
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          ag[s][e] = wu != 0.f ? fmaf(wu, val[u][s][e], ag[s][e]) : ag[s][e];
+    }
+
+    // fold the batch into the warp's row (m_run = -inf gives sa = 0)
+    const float m_new = fmaxf(m_run, mg);
+    const float sa = expf(m_run - m_new), sg = expf(mg - m_new);
+    l_run = l_run * sa + lg * sg;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s)
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[s][e] = acc[s][e] * sa + ag[s][e] * sg;
+    m_run = m_new;
+  }
+
+  // the warps' rows to shared memory, then merged by every thread: the
+  // CTA's (m, l), and acc for the dims d it owns
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s)
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int d = (lane + 32 * s) * E + e;
+      if (d < head_dim) rows_s[warp][d] = acc[s][e];
+    }
+  if (lane == 0) {
+    rows_s[warp][head_dim] = m_run;
+    rows_s[warp][head_dim + 1] = l_run;
+  }
+  __syncthreads();
+  float m = -INFINITY, l = 0.f;
+  for (int i = 0; i < n_warps; ++i) m = fmaxf(m, rows_s[i][head_dim]);
+  for (int i = 0; i < n_warps; ++i)
+    if (rows_s[i][head_dim] != -INFINITY)
+      l += expf(rows_s[i][head_dim] - m) * rows_s[i][head_dim + 1];
+  for (int d = threadIdx.x; d < head_dim; d += blockDim.x) {
+    float a = 0.f;
+    for (int i = 0; i < n_warps; ++i)
+      if (rows_s[i][head_dim] != -INFINITY)
+        a += expf(rows_s[i][head_dim] - m) * rows_s[i][d];
+    if constexpr (PARTIALS)
+      part[bh * wrow + d] = a;
+    else
+      out[bh * head_dim + d] = from_float<TQ>(a / l);
+  }
+  if constexpr (PARTIALS) {
+    if (threadIdx.x == 0) {
+      part[bh * wrow + head_dim] = m;
+      part[bh * wrow + head_dim + 1] = l;
     }
   }
 }
@@ -901,21 +1035,69 @@ auto with_route(int d, int q_bf16, int kv_bf16, int tensor_core, F f) {
   return with_dpad<Fma<float, float>::At>(d, f);
 }
 
+// The combine's warps a CTA for the n rows of one (b, h): one for every
+// 16 rows (a batch at D <= 128), rounded up to a power of two, at most 8:
+// decode_32k's 33 rows 4, long_500k's 257 8, a merge of 4 lanes' rows 1;
+// fewer or more are slower there (chip_fd_compare.py --combine-sweep).
+// Built with -DCEMR_COMBINE_WARPS=w, every combine takes w warps, up to
+// kCombineMaxWarps: that sweep's builds.
+#ifndef CEMR_COMBINE_WARPS
+#define CEMR_COMBINE_WARPS 0
+#endif
+static_assert(CEMR_COMBINE_WARPS >= 0 &&
+                  CEMR_COMBINE_WARPS <= kCombineMaxWarps,
+              "CEMR_COMBINE_WARPS: 0 (from n_chunks) or 1..16");
+
+int combine_warps(int n) {
+  if (CEMR_COMBINE_WARPS > 0) return CEMR_COMBINE_WARPS;
+  int warps = 1;
+  while (warps < 8 && warps * 16 < n) warps *= 2;
+  return warps;
+}
+
+template <typename TQ, bool PARTIALS>
+using CombineFn = void (*)(const float*, TQ*, float*, int, int);
+
+// the combine kernel for head dim d: DPAD the power of two in [32, 256]
+// that holds d, float2 reads when d is even and ws 8-byte aligned (a
+// contiguous view may start at any float)
+template <typename TQ, bool PARTIALS, int DPAD>
+CombineFn<TQ, PARTIALS> combine_at(int d, const float* ws) {
+  if (d % 2 == 0 && reinterpret_cast<uintptr_t>(ws) % 8 == 0)
+    return combine_kernel<TQ, PARTIALS, DPAD, 2>;
+  return combine_kernel<TQ, PARTIALS, DPAD, 1>;
+}
+template <typename TQ, bool PARTIALS>
+CombineFn<TQ, PARTIALS> combine_for(int d, const float* ws) {
+  if (d <= 32) return combine_at<TQ, PARTIALS, 32>(d, ws);
+  if (d <= 64) return combine_at<TQ, PARTIALS, 64>(d, ws);
+  if (d <= 128) return combine_at<TQ, PARTIALS, 128>(d, ws);
+  return combine_at<TQ, PARTIALS, 256>(d, ws);
+}
+
+// a CTA of combine_warps(n_chunks) warps for each of the bh (b, h)
+template <typename TQ, bool PARTIALS>
+cudaError_t launch_combine_t(const float* ws, TQ* out, float* part, int bh,
+                             int n_chunks, int d, cudaStream_t stream) {
+  const CombineFn<TQ, PARTIALS> kernel = combine_for<TQ, PARTIALS>(d, ws);
+  kernel<<<(unsigned)bh, 32 * combine_warps(n_chunks), 0, stream>>>(
+      ws, out, part, n_chunks, d);
+  return cudaGetLastError();
+}
+
 // the merge of n_chunks partial rows per (b, h) of ws into out (q's dtype)
 // or, with part, into one partial row per (b, h)
 cudaError_t launch_combine(const float* ws, void* out, float* part, int bh,
                            int n_chunks, int d, int out_bf16,
                            cudaStream_t stream) {
   if (part)
-    combine_kernel<float, true><<<(unsigned)bh, kThreads, 0, stream>>>(
-        ws, nullptr, part, n_chunks, d);
-  else if (out_bf16)
-    combine_kernel<bf16, false><<<(unsigned)bh, kThreads, 0, stream>>>(
-        ws, static_cast<bf16*>(out), nullptr, n_chunks, d);
-  else
-    combine_kernel<float, false><<<(unsigned)bh, kThreads, 0, stream>>>(
-        ws, static_cast<float*>(out), nullptr, n_chunks, d);
-  return cudaGetLastError();
+    return launch_combine_t<float, true>(ws, nullptr, part, bh, n_chunks, d,
+                                         stream);
+  if (out_bf16)
+    return launch_combine_t<bf16, false>(ws, static_cast<bf16*>(out),
+                                         nullptr, bh, n_chunks, d, stream);
+  return launch_combine_t<float, false>(ws, static_cast<float*>(out),
+                                        nullptr, bh, n_chunks, d, stream);
 }
 
 // The arguments outside the split kernels' contract, or the route's

@@ -16,9 +16,11 @@ dtypes, D and alignment (`route`): "tensor_core" (bf16 q and cache, D a
 multiple of 16: the scores on mma.sync) or "cuda_core" (every other case:
 fp32 FMA). With more than one chunk the wrapper allocates an fp32
 workspace (B, H, n_chunks, D + 2) with `torch.empty` for the per-chunk
-partials, and a second kernel merges them into out; with one chunk the
-first kernel writes out itself. The wrapper never reads `lengths` on the
-host: no sync per call.
+partials, and a second kernel, the combine, merges them into out; with one
+chunk the first kernel writes out itself. The combine spreads the rows of
+one (b, h) over the warps of a CTA (as many as n_chunks calls for), so
+that it takes about the time its bytes take. The wrapper never reads
+`lengths` on the host: no sync per call.
 
 It counts its calls in `flash_decode.launches` (one per call, whatever the
 number of device kernels), per route in `flash_decode.launches_by_route`,
@@ -68,8 +70,13 @@ KERNELS = ("split", "combine")          # in the order a call launches them
 _DTYPES = (torch.float32, torch.bfloat16)
 # split_plan: aim at this many CTAs (several waves of 2 per SM on 132 SMs
 # when half of them are past their row's length), with chunks a power of
-# two between the two bounds
-_TARGET_CTAS = 2048
+# two between the two bounds. A grid of at most _SMALL_GRID (b, KV head,
+# head block) columns, one long row of a cache such as long_500k's or a
+# context-parallel block of it, aims at _TARGET_CTAS_SMALL, about one CTA
+# an SM: there longer chunks save more in the CTAs' prologues and the
+# combine's rows than the waves they give up cost (PERF.md, the sweep of
+# chip_fd_compare.py)
+_TARGET_CTAS, _TARGET_CTAS_SMALL, _SMALL_GRID = 2048, 128, 2
 _MIN_CHUNK, _MAX_CHUNK = 128, 2048
 
 
@@ -108,12 +115,16 @@ def split_plan(b: int, h: int, hkv: int, s: int, d: int
     """How the kernels split the S positions, from the shapes alone:
     (chunk, n_chunks, workspace shape). The chunk is the power of two
     between 128 and 2048 nearest below the positions per CTA that gives
-    about 2,048 CTAs of (KV head, head block, chunk, b). One chunk covers
-    S whole (chunk = S) when S fits in one; then no workspace is needed
-    (None), else it is (B, H, n_chunks, D + 2) in fp32: each chunk's
-    per-head acc[D], m and l."""
+    about 2,048 CTAs of (KV head, head block, chunk, b), or 128 CTAs when
+    B x Hkv x head blocks is at most 2 (one long row: long_500k's layer
+    in 257 chunks of 2,048, its 4-lane block in 65 of 2,048). One chunk
+    covers S whole (chunk = S) when S fits in one; then no workspace is
+    needed (None), else it is (B, H, n_chunks, D + 2) in fp32: each
+    chunk's per-head acc[D], m and l."""
     n_hblk = -(-(h // hkv) // HEADS_PER_CTA)
-    per_cta = max(b * hkv * n_hblk * s // _TARGET_CTAS, 1)
+    grid = b * hkv * n_hblk
+    target = _TARGET_CTAS_SMALL if grid <= _SMALL_GRID else _TARGET_CTAS
+    per_cta = max(grid * s // target, 1)
     chunk = min(max(1 << (per_cta.bit_length() - 1), _MIN_CHUNK),
                 _MAX_CHUNK)
     if chunk >= s:

@@ -176,12 +176,14 @@ def flash_decode_merge_ref(partials, dtype):
     """n partial rows per (b, h), (B, H, n, D + 2) float32 as
     `flash_decode_partials_ref` gives them, merged into the output
     (B, H, D) in `dtype`: sum_i w_i acc_i / sum_i w_i l_i with w_i =
-    exp(m_i - max_i m_i), an empty row (m = -inf) weighing 0. The plain
-    version of `flash_decode_merge`, and the reference's pmax / psum
-    combine (context_parallel.py:66-71). A (b, h) whose rows are all
-    empty gives 0/0 = NaN."""
+    exp(m_i - max_i m_i), an empty row (m = -inf) weighing 0 and its acc
+    unread, as the kernel leaves it. The plain version of
+    `flash_decode_merge`, and the reference's pmax / psum combine
+    (context_parallel.py:66-71). A (b, h) whose rows are all empty gives
+    0/0 = NaN."""
     d = partials.shape[-1] - 2
     acc, m, l = partials[..., :d], partials[..., d], partials[..., d + 1]
+    acc = torch.where(torch.isinf(m)[..., None], 0.0, acc)
     m_all = m.amax(-1, keepdim=True)
     w = torch.where(torch.isinf(m), 0.0,
                     torch.exp(m - torch.where(torch.isinf(m_all), 0.0,

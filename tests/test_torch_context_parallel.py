@@ -114,6 +114,44 @@ def test_plain_merge_of_every_block_is_decode_attention():
                                              torch.float32)).all()
 
 
+@pytest.mark.parametrize("lens", [[1, 5, 64], [64, 64, 64], [0, 0, 0]],
+                         ids=["most-empty", "full", "all-empty"])
+def test_plain_merge_of_over_1000_blocks_is_decode_attention(lens):
+    """The (3, 64) cache cut into 1,030 blocks along a 1,030-position view
+    of a longer row (the blocks past S empty by construction: lengths
+    count from 0 and cover at most 64 positions), their partials stacked
+    and merged: equal to the oracle, and to the reference's
+    `sharded_decode_attention` on a one-device mesh where a row holds a
+    position. Lengths 1 and 5 leave all blocks but one or two empty;
+    length 0 leaves every block empty, so the merge is NaN (the oracle's
+    all-masked softmax) and each partial row exactly (0, -inf, 0)."""
+    q, k, v, _ = _inputs("b3s64", seed=9)
+    lens = np.asarray(lens, np.int32)
+    qt, kt, vt, lt = _torch(q, k, v, lens)
+    n = 1030
+    pad = torch.zeros((3, n - 64, 2, 8))
+    kl, vl = torch.cat([kt, pad], 1), torch.cat([vt, pad], 1)
+    rows = torch.stack([fd.flash_decode_partials(qt, kl[:, o:o + 1],
+                                                 vl[:, o:o + 1], lt, o)
+                        for o in range(n)], dim=2)
+    assert rows.shape == (3, 6, n, 10)
+    assert torch.isinf(rows[:, :, 64:, -2]).all()
+    assert (rows[:, :, 64:, -1] == 0).all() and (rows[:, :, 64:, :-2]
+                                                 == 0).all()
+    got = fd.flash_decode_merge(rows, torch.float32)
+    jq, jk, jv, jl = (jnp.asarray(a) for a in (q, k, v, lens))
+    want = np.asarray(jref.flash_decode_ref(jq, jk, jv, jl))
+    if (lens == 0).all():
+        assert torch.isnan(got).all() and np.isnan(want).all()
+        return
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    mesh = jax.make_mesh((1,), ("model",))
+    np.testing.assert_allclose(
+        got.numpy(),
+        np.asarray(jcp.sharded_decode_attention(jq, jk, jv, jl, mesh)),
+        atol=ATOL)
+
+
 # ------------------------------------------------------------ sharded
 @pytest.mark.parametrize("lanes", [1, 2, 4, 8])
 @pytest.mark.parametrize("name", list(SHAPES))

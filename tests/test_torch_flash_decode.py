@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
+from repro.distributed import context_parallel as jcp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_decode import flash_decode_pallas  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -217,6 +218,140 @@ def test_split_plan_at_the_paths_shapes():
     assert fd.split_plan(4, 12, 2, 24, 128) == (24, 1, None)
 
 
+def test_split_plan_at_the_long_context_shapes():
+    """One long row of a 2-KV-head cache aims at 128 CTAs, chunks capped
+    at 2,048: the long_500k layer (B 1, S 524,292) in 257 chunks of 2,048
+    (514 CTAs, workspace (1, 12, 257, 130), 1.6 MB), the first block of
+    its 4-lane split (S 131,073) in 65. A grid of 3 columns keeps the
+    2,048-CTA aim: at S 131,073, 1,025 chunks of 128 (the combine's
+    many-row case on the card)."""
+    assert fd.split_plan(1, 12, 2, 524_292, 128) == (2048, 257,
+                                                     (1, 12, 257, 130))
+    assert fd.split_plan(1, 12, 2, 131_073, 128) == (2048, 65,
+                                                     (1, 12, 65, 130))
+    assert fd.split_plan(1, 12, 3, 131_073, 128) == (128, 1025,
+                                                     (1, 12, 1025, 130))
+
+
+def _block_rows(q, k, v, lengths, n, block):
+    """The partial rows of n blocks of `block` positions, stacked as the
+    merge takes them: (B, H, n, D + 2)."""
+    return torch.stack([fd.flash_decode_partials(q, k[:, o:o + block],
+                                                 v[:, o:o + block], lengths,
+                                                 o)
+                        for o in range(0, n * block, block)], dim=2)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 16, 17, 33, 64, 65, 128, 129, 257,
+                               512, 513, 1025])
+def test_merge_of_n_rows_matches_reference(n):
+    """The merge of n rows a (b, h), at the row counts where the combine's
+    warps a CTA change (a warp for every 16 rows up to 8) and past them:
+    the partials of n blocks of 3 positions of one cache, merged,
+    equal the JAX oracle over the whole cache at a full and a ragged
+    length."""
+    s = 3 * n
+    (q, k, v, _), (jq, jk, jv, _) = _case(2, 4, 2, s, 16, torch.float32,
+                                          torch.float32, seed=n)
+    lens = np.asarray([s, 1 + (s * 5) // 7], np.int32)
+    rows = _block_rows(q, k, v, torch.from_numpy(lens), n, 3)
+    assert rows.shape == (2, 4, n, 18)
+    want = jref.flash_decode_ref(jq, jk, jv, jnp.asarray(lens))
+    _close(fd.flash_decode_merge(rows, torch.float32), want, torch.float32)
+
+
+def test_merge_reads_rows_that_start_at_an_odd_float():
+    """Rows in a contiguous view that starts one float into its buffer (4
+    bytes past an 8-byte boundary) merge as their copy does, and as the
+    JAX oracle over the cache."""
+    n = 40
+    (q, k, v, lengths), (jq, jk, jv, jl) = _case(2, 4, 2, 3 * n, 16,
+                                                 torch.float32,
+                                                 torch.float32, seed=16)
+    rows = _block_rows(q, k, v, lengths, n, 3)
+    view = torch.empty(rows.numel() + 1)[1:].view(rows.shape)
+    view.copy_(rows)
+    assert view.is_contiguous() and view.data_ptr() % 8 == 4
+    got = fd.flash_decode_merge(view, torch.float32)
+    torch.testing.assert_close(got, fd.flash_decode_merge(rows,
+                                                          torch.float32))
+    _close(got, jref.flash_decode_ref(jq, jk, jv, jl), torch.float32)
+
+
+MANY_CHUNK, MANY_S = 4, 4 * 1030         # 1,030 chunks
+
+
+def test_split_version_at_over_1000_chunks_matches_reference_and_pallas():
+    """The plain split-and-combine over 1,030 chunks of 4 positions at
+    lengths 1, chunk - 1, chunk + 1 and S (in the first three rows all
+    chunks but the first one or two are empty): against the JAX oracle
+    (with the lengths and with None) and the Pallas kernel in interpret
+    mode."""
+    (q, k, v, _), (jq, jk, jv, _) = _case(4, 4, 2, MANY_S, 16,
+                                          torch.float32, torch.float32,
+                                          seed=13)
+    lens = np.asarray([1, MANY_CHUNK - 1, MANY_CHUNK + 1, MANY_S], np.int32)
+    got = ref.flash_decode_split_ref(q, k, v, torch.from_numpy(lens),
+                                     chunk=MANY_CHUNK)
+    want, want_full = jref_ragged_and_full(jq, jk, jv, jnp.asarray(lens))
+    _close(got, want, torch.float32)
+    _close(ref.flash_decode_split_ref(q, k, v, chunk=MANY_CHUNK),
+           want_full, torch.float32)
+    _close(got, flash_decode_pallas(jq, jk, jv, jnp.asarray(lens),
+                                    interpret=True), torch.float32)
+
+
+def test_merge_of_over_1000_rows_with_only_the_last_one_holding_positions():
+    """1,030 chunk rows of which only the last holds positions (the
+    others are the empty row (0, -inf, 0)): the merge equals the JAX
+    oracle over the last chunk alone; with NaN in the empty rows' acc it
+    is the same, since an empty row's acc is never used."""
+    (q, k, v, _), (jq, jk, jv, _) = _case(2, 4, 2, MANY_S, 16,
+                                          torch.float32, torch.float32,
+                                          seed=14)
+    last = MANY_S - MANY_CHUNK
+    none = torch.zeros(2, dtype=torch.int32)
+    rows = [fd.flash_decode_partials(q, k[:, c0:c0 + MANY_CHUNK],
+                                     v[:, c0:c0 + MANY_CHUNK],
+                                     none if c0 < last else None, c0)
+            for c0 in range(0, MANY_S, MANY_CHUNK)]
+    parts = torch.stack(rows, dim=2)
+    assert parts.shape == (2, 4, 1030, 18)
+    assert torch.isinf(parts[:, :, :-1, -2]).all()
+    want = jref.flash_decode_ref(jq, jk[:, last:], jv[:, last:])
+    _close(fd.flash_decode_merge(parts, torch.float32), want, torch.float32)
+    parts[:, :, :-1, :16] = float("nan")
+    _close(fd.flash_decode_merge(parts, torch.float32), want, torch.float32)
+
+
+def test_over_1000_empty_chunks_give_nan_and_the_empty_partial():
+    """Length 0 over 1,030 chunks: the split version gives NaN, as the
+    JAX oracle does; the partials of the whole cache as one block are
+    exactly (0, -inf, 0), where the reference's `_local_partials` carries
+    (0, -1e30, 0); their merge, and the merge of 1,030 empty rows, is
+    NaN."""
+    (q, k, v, _), (jq, jk, jv, _) = _case(2, 4, 2, MANY_S, 16,
+                                          torch.float32, torch.float32,
+                                          seed=15)
+    none = torch.zeros(2, dtype=torch.int32)
+    got = ref.flash_decode_split_ref(q, k, v, none, chunk=MANY_CHUNK)
+    want = np.asarray(jref.flash_decode_ref(jq, jk, jv,
+                                            jnp.zeros(2, jnp.int32)))
+    assert torch.isnan(got).all() and np.isnan(want).all()
+    part = fd.flash_decode_partials(q, k, v, none, 0)
+    m, l, o = jcp._local_partials(jq, jk, jv, jnp.zeros(2, jnp.int32), 0,
+                                  0.25)
+    assert (np.asarray(m) == -1e30).all() and (np.asarray(l) == 0).all()
+    assert (np.asarray(o) == 0).all()
+    assert torch.isinf(part[..., -2]).all() and (part[..., -2] < 0).all()
+    assert (part[..., -1] == 0).all() and (part[..., :-2] == 0).all()
+    rows = part[:, :, None].expand(2, 4, 1030, 18).contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        assert torch.isnan(fd.flash_decode_merge(part[:, :, None],
+                                                 dtype)).all()
+        assert torch.isnan(fd.flash_decode_merge(rows, dtype)).all()
+
+
 def test_route_is_decided_by_dtypes_shape_and_alignment():
     """The tensor-core route takes bfloat16 q and cache with D a multiple
     of 16 and a 16-byte aligned cache; everything else takes the CUDA
@@ -279,14 +414,16 @@ def test_library_is_named_by_its_source():
 def test_cuda_kernel_matches_plain_version(q_dtype, kv_dtype):
     """The CUDA kernels against their plain version on the card, G = 8 and
     G = 32 included, and with lengths at the chunk boundaries of the
-    split the wrapper picks; each call launches the split kernel, and the
-    combine when the plan has more than one chunk."""
+    split the wrapper picks (at (1, 12, 3, 131,073): 1,025 chunks of 128,
+    most of them empty at the short lengths); each call launches the split
+    kernel, and the combine when the plan has more than one chunk."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (runs on the H100 via chip_smoke.py)")
     dev = torch.device("cuda")
     for b, h, hkv, s, d in [(1, 4, 2, 1, 16), (3, 12, 2, 200, 64),
                             (3, 4, 4, 17, 128), (2, 12, 2, 4096, 128),
-                            (2, 16, 2, 1000, 128), (2, 32, 1, 600, 64)]:
+                            (2, 16, 2, 1000, 128), (2, 32, 1, 600, 64),
+                            (1, 12, 3, 131_073, 128)]:
         (q, k, v, lengths), _ = _case(b, h, hkv, s, d, q_dtype, kv_dtype,
                                       seed=s + d)
         q, k, v, lengths = (x.to(dev) for x in (q, k, v, lengths))
@@ -305,3 +442,26 @@ def test_cuda_kernel_matches_plain_version(q_dtype, kv_dtype):
             tol = TOL[q_dtype]
             torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                        rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 17, 128])
+def test_cuda_merge_of_rows_at_an_odd_float_matches_plain_version(d):
+    """The combine over rows in a contiguous view that starts 4 bytes past
+    an 8-byte boundary (its scalar reads, also at an even D), against the
+    plain merge on the same rows, at 600 rows a (b, h)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (runs on the H100 via chip_smoke.py)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(d)
+    shape = (2, 3, 600, d + 2)
+    rows = torch.empty(int(np.prod(shape)) + 1, device=dev)[1:].view(shape)
+    rows.copy_(torch.randn(shape, generator=gen, device=dev))
+    rows[..., -1].abs_()
+    assert rows.is_contiguous() and rows.data_ptr() % 8 == 4
+    for dtype in (torch.float32, torch.bfloat16):
+        got = fd.flash_decode_merge(rows, dtype)
+        want = ref.flash_decode_merge_ref(rows, dtype)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
